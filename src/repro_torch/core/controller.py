@@ -1,0 +1,520 @@
+"""The Federation Controller — model state, transport and store plumbing.
+
+The port of ``repro/core/controller.py`` for the slice's case: round-based
+(sync) protocols, the f32 arena or the stack store, the raw upload codec and
+FedAvg, on one device.  The round engine (``core/engine.py``) drives
+protocols and calls back into this plumbing:
+
+* **serialize-once broadcast** — the global model is serialized at most once
+  per model version (:meth:`Controller._broadcast`), straight off the flat
+  ``global_buffer``;
+* **measured upload ingest** (:meth:`Controller.ingest`) — learners send
+  packed rows through the measured uplink; arrival is a decode, the
+  admission screen on the row's L2 norm, and an in-place arena row write;
+* **aggregation** (:meth:`Controller.aggregate_round`) — one masked FedAvg
+  over the ``(n_max, P)`` arena, which on the card is the hand-written
+  Hopper kernel; then the server optimizer, a device sync and the commit.
+
+Secure aggregation, the int8/top-k codecs and arenas, the sharded arena,
+robust rules, the continuous protocols and checkpoints are later slices of
+the port: asking for them raises ``NotImplementedError`` at construction.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import aggregation, packing
+from repro_torch.core.engine import RoundEngine, RoundTimings, UploadRejectedError
+from repro_torch.core.journal import EventJournal
+from repro_torch.core.learner import Learner, LocalUpdate
+from repro_torch.core.metrics import Telemetry
+from repro_torch.core.scheduler import LearnerProfile, ProtocolPolicy, SyncProtocol
+from repro_torch.core.selection import SelectionPolicy
+from repro_torch.core.server_opt import ServerOptimizer, make_server_optimizer
+from repro_torch.core.store import ArenaStore, ModelRecord, ModelStore
+from repro_torch.core.transport import Broadcast, Channel, get_upload_codec
+from repro_torch.device import resolve_device, synchronize
+
+__all__ = ["RoundTimings", "Controller"]
+
+
+AggregateFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _later_slice(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it is {slice_name} of the port (ROADMAP.md)"
+    )
+
+
+class Controller:
+    """The federation controller: model state + transport + store plumbing.
+
+    ``controller.engine.run(rounds=N)`` drives the protocol.  Parameters
+    follow the reference's ``Controller``; this slice honours:
+
+    protocol:
+        A round-based :class:`~repro_torch.core.scheduler.ProtocolPolicy`
+        (``SyncProtocol`` by default).
+    aggregate_fn / masked_aggregate_fn:
+        ``(stack, weights) -> (P,)`` and ``(arena, weights, mask) -> (P,)``;
+        default to FedAvg through ``kernels/ops`` (the Hopper kernel on CUDA).
+    store_mode:
+        ``"arena"`` (default) aggregates straight off the device-resident
+        :class:`ArenaStore`; ``"stack"`` re-stacks the hash-map store.
+    flat_uploads / upload_codec:
+        Ship the manifest at registration so learners upload packed rows
+        through the measured uplink; ``"raw"`` is the only codec here.
+    admission_control and its knobs, quarantine_threshold / quarantine_decay:
+        The upload admission screen (reject non-finite rows, clip norm
+        outliers against an EWMA) and quarantine of repeat offenders, on by
+        default as in the reference.
+    device:
+        Where the global model, the arena and decoded uploads live; the
+        card unless ``device="cpu"``.
+
+    All wire/store/dispatch counters live in one
+    :class:`~repro_torch.core.metrics.Telemetry` registry at
+    :attr:`telemetry`, under the reference's names.
+    """
+
+    def __init__(
+        self,
+        protocol: ProtocolPolicy | None = None,
+        selection: SelectionPolicy | None = None,
+        aggregate_fn: AggregateFn | None = None,
+        server_optimizer: ServerOptimizer | None = None,
+        store: ModelStore | None = None,
+        channel: Channel | None = None,
+        secure: bool = False,
+        max_dispatch_workers: int = 32,
+        store_mode: str = "arena",
+        masked_aggregate_fn: Callable | None = None,
+        arena_n_max: int = 8,
+        arena_row_align: int = 1024,
+        arena_mesh: Any = None,
+        arena_dtype: str = "f32",
+        sparse_mode: str = "densify",
+        flat_uploads: bool = True,
+        upload_codec: Any = None,
+        profile_decay: float = 0.5,
+        journal: EventJournal | None = None,
+        journal_sink: Any = None,
+        journal_capacity: int = 4096,
+        checkpoint_every: int | None = None,
+        checkpoint_dir: str | None = None,
+        aggregation_rule: str = "fedavg",
+        admission_control: bool = True,
+        admission_clip_factor: float = 4.0,
+        admission_ewma_decay: float = 0.9,
+        admission_warmup: int = 8,
+        quarantine_threshold: float = 2.0,
+        quarantine_decay: float = 0.75,
+        device: str | torch.device | None = None,
+    ):
+        if store_mode not in ("arena", "stack"):
+            raise ValueError(f"store_mode must be 'arena' or 'stack', got {store_mode!r}")
+        if secure:
+            raise _later_slice("secure aggregation", "slice E")
+        if arena_mesh is not None:
+            raise _later_slice("the mesh-sharded arena", "slice G")
+        if arena_dtype != "f32":
+            raise _later_slice(f"arena_dtype={arena_dtype!r}", "slice C")
+        if sparse_mode != "densify":
+            raise _later_slice(f"sparse_mode={sparse_mode!r}", "slice F")
+        if aggregation_rule != "fedavg":
+            raise _later_slice(f"aggregation_rule={aggregation_rule!r}", "slice D")
+        if checkpoint_every is not None or checkpoint_dir is not None:
+            raise _later_slice("checkpoint/resume", "slice B")
+        if store is not None and store_mode == "arena":
+            raise ValueError(
+                "store= is only honoured with store_mode='stack'; the arena "
+                "mode keeps uploads in its device-resident ArenaStore"
+            )
+        self.protocol = protocol or SyncProtocol()
+        if getattr(self.protocol, "continuous", False):
+            raise _later_slice(f"the {type(self.protocol).__name__} policy", "slice B")
+        self.device = resolve_device(device)
+        self.selection = selection or SelectionPolicy()
+        self.aggregate_fn = aggregate_fn or aggregation.fedavg
+        if masked_aggregate_fn is not None:
+            self.masked_aggregate_fn = masked_aggregate_fn
+        elif aggregate_fn is not None:
+            self.masked_aggregate_fn = lambda arena, w, m: aggregate_fn(arena, w * m)
+        else:
+            self.masked_aggregate_fn = aggregation.masked_weighted_average
+        self.server_opt = server_optimizer or make_server_optimizer("fedavg")
+        self.store = store or ModelStore()
+        self.store_mode = store_mode
+        self.arena: ArenaStore | None = None
+        self._arena_n_max = arena_n_max
+        self._arena_row_align = arena_row_align
+        self.channel = channel or Channel(device=self.device)
+        if self.channel.device != self.device:
+            raise ValueError(
+                f"the channel decodes onto {self.channel.device}, the controller "
+                f"runs on {self.device}"
+            )
+        if upload_codec is not None:
+            self.channel.upload_codec = get_upload_codec(upload_codec)
+        # One observability surface: the controller adopts its channel's registry.
+        self.telemetry: Telemetry = self.channel.telemetry
+        self.store.bind_telemetry(self.telemetry)
+        self.profile_decay = profile_decay
+        # Admission control: non-finite rows are rejected; once the EWMA of
+        # accepted norms has warmed up, outlier norms are clipped to
+        # factor * EWMA.
+        self.admission_control = bool(admission_control)
+        self.admission_clip_factor = float(admission_clip_factor)
+        self.admission_ewma_decay = float(admission_ewma_decay)
+        self.admission_warmup = int(admission_warmup)
+        self._adm_ewma: float | None = None
+        self._adm_accepted = 0
+        # Quarantine: per-learner decaying offense score; entered at
+        # score >= threshold, released below threshold / 2 (hysteresis).
+        self.quarantine_threshold = float(quarantine_threshold)
+        self.quarantine_decay = float(quarantine_decay)
+        self._offenses: dict[str, tuple[float, int]] = {}
+        self._quarantined: set[str] = set()
+
+        self._learners: dict[str, Learner] = {}
+        self._learner_profiles: dict[str, LearnerProfile] = {}
+        self._deregistered_at: dict[str, int] = {}
+        self._c_dropouts = self.telemetry.counter("engine.faults.dropouts")
+        self._c_rejoins = self.telemetry.counter("engine.faults.rejoins")
+        self._c_rejected_nonfinite = self.telemetry.counter("engine.uploads.rejected.nonfinite")
+        self._c_clipped = self.telemetry.counter("engine.uploads.clipped")
+        self._c_quarantined = self.telemetry.counter("engine.quarantine.entered")
+        self._g_quarantine = self.telemetry.gauge("engine.quarantine.active")
+        self._store_lock = threading.Lock()
+
+        self.global_params: Any = None
+        self.global_buffer: torch.Tensor | None = None
+        self.manifest: packing.Manifest | None = None
+        self._server_state = None
+        self.round_id = 0
+        self.history: list[RoundTimings] = []
+        self._model_version = 0
+        self._learner_versions: dict[str, int] = {}
+        self.flat_uploads = flat_uploads
+        self._wire_lock = threading.Lock()
+        self._wire_cache: tuple[int, Broadcast] | None = None
+        self._c_dispatch_ser = self.telemetry.counter("controller.dispatch_serializations")
+        self._c_fallback = self.telemetry.counter("controller.upload_fallback_packs")
+        self._g_version = self.telemetry.gauge("controller.model_version")
+        if journal is None:
+            journal = EventJournal(capacity=journal_capacity, sink=journal_sink)
+        self.engine = RoundEngine(self, max_dispatch_workers=max_dispatch_workers,
+                                  journal=journal)
+
+    @property
+    def dispatch_serializations(self) -> int:
+        """Shim for ``telemetry.value('controller.dispatch_serializations')``."""
+        return self._c_dispatch_ser.value
+
+    @property
+    def upload_fallback_packs(self) -> int:
+        """Shim for ``telemetry.value('controller.upload_fallback_packs')``."""
+        return self._c_fallback.value
+
+    @property
+    def journal(self) -> EventJournal:
+        """The engine's flight recorder (``core/journal.EventJournal``)."""
+        return self.engine.journal
+
+    # ------------------------------------------------------------------ init
+    def set_initial_model(self, params: Any) -> None:
+        """Driver ships initial model tensors to the controller (Fig. 8).
+
+        The canonical state is the flat f32 ``global_buffer`` on the
+        controller's device plus the cached ``manifest``; ``global_params``
+        is normalized through one numeric round trip.
+        """
+        self.manifest = packing.build_manifest(params)
+        self.global_buffer = packing.pack_numeric(params).to(self.device)
+        self.global_params = packing.unpack_numeric(self.global_buffer, self.manifest)
+        self._server_state = self.server_opt.init(self.global_buffer)
+        self.invalidate_wire_cache()
+        if self.store_mode == "arena":
+            self.arena = ArenaStore(
+                num_params=max(1, int(self.global_buffer.shape[0])),
+                n_max=max(self._arena_n_max, len(self._learners)),
+                row_align=self._arena_row_align,
+                telemetry=self.telemetry,
+                device=self.device,
+            )
+            # Rows follow registration order, so aggregation order is
+            # reproducible.
+            for lid in self._learners:
+                self.arena.ensure_row(lid)
+        for learner in self._learners.values():
+            self._ship_manifest(learner)
+
+    def _ship_manifest(self, learner: Learner) -> None:
+        """Ship the wire contract (manifest + row width + channel) once."""
+        if not self.flat_uploads or self.manifest is None:
+            return
+        pad_to = self.arena.padded_params if self.arena is not None else None
+        learner.accept_manifest(self.manifest, pad_to=pad_to, channel=self.channel)
+
+    def register_learner(self, learner: Learner) -> None:
+        """Admit a learner to the federation (paper Fig. 8 join).
+
+        Call only while the engine loop is idle (between ``engine.run``
+        calls) or from the loop thread.
+        """
+        lid = learner.learner_id
+        rejoining = lid in self._deregistered_at
+        self._learners[lid] = learner
+        prof = self._learner_profiles.get(lid)
+        if prof is None:
+            self._learner_profiles[lid] = LearnerProfile(decay=self.profile_decay)
+        elif rejoining:
+            prof.decay_reputation(self.round_id - self._deregistered_at[lid])
+        if rejoining:
+            del self._deregistered_at[lid]
+            self._c_rejoins.add(1)
+        self._learner_versions[lid] = 0
+        if self.arena is not None:
+            self.arena.ensure_row(lid)
+        self._ship_manifest(learner)
+
+    def deregister_learner(self, learner_id: str) -> None:
+        """Remove a learner mid-federation (dropout); unknown ids are a no-op."""
+        if learner_id not in self._learners:
+            return
+        del self._learners[learner_id]
+        self._deregistered_at[learner_id] = int(self.round_id)
+        if self.arena is not None:
+            self.arena.invalidate(learner_id)
+        else:
+            with self._store_lock:
+                self.store.discard(learner_id)
+        self._c_dropouts.add(1)
+
+    @property
+    def learner_ids(self) -> list[str]:
+        """IDs of every registered learner, in registration order."""
+        return list(self._learners)
+
+    # -------------------------------------------------------------- dispatch
+    def _broadcast(self) -> Broadcast:
+        """The current model's shared wire payload, serialized at most once
+        per model version (bytes straight off ``global_buffer``)."""
+        key = self._model_version
+        with self._wire_lock:
+            if self._wire_cache is None or self._wire_cache[0] != key:
+                bc = self.channel.broadcast(buffer=self.global_buffer, manifest=self.manifest)
+                self._c_dispatch_ser.add(1)
+                self._wire_cache = (key, bc)
+            return self._wire_cache[1]
+
+    def invalidate_wire_cache(self) -> None:
+        """Drop the cached broadcast; the next dispatch serializes anew."""
+        with self._wire_lock:
+            self._wire_cache = None
+
+    def wire_time_s(self, learner_id: str) -> float:
+        """Per-learner round-trip virtual wire estimate: downlink + uplink."""
+        if self.manifest is None:
+            return 0.0
+        down = int(self.manifest.total_bytes)
+        prof = self._learner_profiles.get(learner_id)
+        up = prof.get("upload_bytes") if prof is not None else None
+        if up is None:
+            n = (self.arena.padded_params if self.arena is not None
+                 else int(self.global_buffer.shape[0]))
+            wire_nbytes = getattr(self.channel.upload_codec, "wire_nbytes", None)
+            up = wire_nbytes(n) if wire_nbytes is not None else 4 * n
+        return self.channel.round_trip_s(down, int(up), learner_id=learner_id)
+
+    # ---------------------------------------------------------------- ingest
+    def _upload_buffer(
+        self, update: LocalUpdate, pad_to: int | None, with_norm: bool = False
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+        """The upload's decoded flat buffer, always off the measured uplink.
+
+        A bare buffer, or a tree the controller must pack itself (counted in
+        ``upload_fallback_packs``), crosses the same measured half with the
+        controller standing in for the learner's send.
+        """
+        if update.upload is not None:
+            return self.channel.recv_upload(update.upload, with_norm=with_norm)
+        buffer = update.buffer
+        if buffer is None:
+            self._c_fallback.add(1)
+            buffer = packing.pack_numeric(update.params, pad_to=pad_to)
+        envelope = self.channel.upload(
+            buffer, metadata={"learner_id": update.learner_id, "round_id": update.round_id},
+        )
+        return self.channel.recv_upload(envelope, with_norm=with_norm)
+
+    def _screen_norm(self, learner_id: str, norm: float) -> tuple[float | None, dict | None]:
+        """The admission decision on an already-materialized norm.
+
+        Non-finite: reject (:class:`UploadRejectedError`, counted in
+        ``engine.uploads.rejected.nonfinite``).  Beyond
+        ``admission_clip_factor`` × the EWMA of accepted norms (after
+        ``admission_warmup`` uploads): clip (counted in
+        ``engine.uploads.clipped``).  Returns ``(scale, clip_info)``.
+        """
+        if not math.isfinite(norm):
+            self._c_rejected_nonfinite.add(1)
+            raise UploadRejectedError(learner_id, "nonfinite", norm)
+        scale: float | None = None
+        clip: dict | None = None
+        if self._adm_ewma is not None and self._adm_accepted >= self.admission_warmup:
+            limit = self.admission_clip_factor * self._adm_ewma
+            if norm > limit > 0.0:
+                scale = limit / norm
+                self._c_clipped.add(1)
+                clip = {"norm": norm, "limit": limit}
+                norm = limit
+        d = self.admission_ewma_decay
+        self._adm_ewma = norm if self._adm_ewma is None else d * self._adm_ewma + (1.0 - d) * norm
+        self._adm_accepted += 1
+        return scale, clip
+
+    def _screen_upload(
+        self, learner_id: str, buffer: torch.Tensor, norm: torch.Tensor
+    ) -> tuple[torch.Tensor, dict | None]:
+        """The admission screen on the decoded row; one host readback (the norm)."""
+        scale, clip = self._screen_norm(learner_id, float(norm))
+        if scale is not None:
+            buffer = buffer * scale
+        return buffer, clip
+
+    def ingest(self, update: LocalUpdate) -> dict | None:
+        """MarkTaskCompleted plumbing: decode the upload, screen, store, profile.
+
+        Arena mode decodes the wire row and writes it in place into the
+        learner's arena row; stack mode inserts it into the hash-map store.
+        Returns the screen's clip info (``None`` when stored untouched).
+        """
+        pad_to = self.arena.padded_params if self.store_mode == "arena" else None
+        clip: dict | None = None
+        if self.admission_control:
+            buffer, norm = self._upload_buffer(update, pad_to=pad_to, with_norm=True)
+            buffer, clip = self._screen_upload(update.learner_id, buffer, norm)
+        else:
+            buffer = self._upload_buffer(update, pad_to=pad_to)
+        version = self._learner_versions.get(update.learner_id, 0)
+        if self.store_mode == "arena":
+            self.arena.write(
+                update.learner_id, buffer,
+                weight=float(update.num_examples), version=float(version),
+            )
+        else:
+            with self._store_lock:
+                self.store.insert(
+                    ModelRecord(
+                        learner_id=update.learner_id,
+                        round_id=update.round_id,
+                        buffer=buffer,
+                        num_examples=update.num_examples,
+                        metadata={
+                            **update.metrics,
+                            "seconds_per_step": update.seconds_per_step,
+                            "model_version": version,
+                        },
+                    )
+                )
+        prof = self._learner_profiles[update.learner_id]
+        prof.observe_step_time(update.seconds_per_step)
+        if update.upload is not None:
+            prof.observe_upload_bytes(update.upload.payload.nbytes)
+        return clip
+
+    # ------------------------------------------------------------ quarantine
+    def offense_score(self, learner_id: str) -> float:
+        """The learner's offense score, decayed to the current round."""
+        entry = self._offenses.get(learner_id)
+        if entry is None:
+            return 0.0
+        score, last_round = entry
+        delta = max(int(self.round_id) - int(last_round), 0)
+        return score * (self.quarantine_decay ** delta)
+
+    def note_offense(self, learner_id: str) -> bool:
+        """Record one admission offense; True when it newly quarantined."""
+        score = self.offense_score(learner_id) + 1.0
+        self._offenses[learner_id] = (score, int(self.round_id))
+        entered = score >= self.quarantine_threshold and learner_id not in self._quarantined
+        if entered:
+            self._quarantined.add(learner_id)
+            self._c_quarantined.add(1)
+        self._g_quarantine.set(len(self.quarantined_ids()))
+        return entered
+
+    def is_quarantined(self, learner_id: str) -> bool:
+        """True while the learner sits inside the quarantine window."""
+        if learner_id not in self._quarantined:
+            return False
+        if self.offense_score(learner_id) < 0.5 * self.quarantine_threshold:
+            self._quarantined.discard(learner_id)
+            return False
+        return True
+
+    def quarantined_ids(self) -> list[str]:
+        """Currently quarantined learner ids, in offense-table order."""
+        return [lid for lid in self._offenses if self.is_quarantined(lid)]
+
+    # ------------------------------------------------------------- aggregate
+    def _commit(self, new_buffer: torch.Tensor) -> None:
+        """Server-side optimization + global model swap + version bump."""
+        self._server_state, new_buffer = self.server_opt.apply(
+            self._server_state, self.global_buffer, new_buffer
+        )
+        # The card returns before it finishes: wait, so aggregation_s bounds
+        # the reduction and the server step, not their launch.
+        synchronize(self.device)
+        self.global_buffer = new_buffer
+        self.global_params = packing.unpack_numeric(new_buffer, self.manifest)
+        self._model_version += 1
+        self._g_version.set(self._model_version)
+
+    def aggregate_round(self, selected: list[str]) -> float:
+        """Cohort aggregation for round-based policies (paper T4-T7).
+
+        Arena mode: one masked reduction over the persistent device buffer.
+        Stack mode: re-stack the stored buffers into an ``(N, P)`` tensor
+        first.  Commits the result; returns the aggregation seconds.
+        """
+        t0 = time.perf_counter()
+        if self.store_mode == "arena":
+            new_buffer = self._aggregate_arena(selected)
+        else:
+            with self._store_lock:
+                records = self.store.select_latest(list(selected))
+            if not records:
+                raise RuntimeError("no local models available to aggregate")
+            stack = torch.stack([r.buffer for r in records], dim=0)
+            weights = torch.tensor(
+                [float(r.num_examples) for r in records], dtype=torch.float32,
+                device=self.device,
+            )
+            new_buffer = self.aggregate_fn(stack, weights)
+        self._commit(new_buffer)
+        return time.perf_counter() - t0
+
+    def _aggregate_arena(self, selected: list[str]) -> torch.Tensor:
+        """Masked reduction over the arena restricted to the round's cohort."""
+        arena = self.arena
+        with arena.lock:
+            # Empty-cohort check from the host-side row map: no device sync.
+            if arena.num_valid(list(selected)) == 0:
+                raise RuntimeError("no local models available to aggregate")
+            mask = arena.round_mask(list(selected))
+            out = self.masked_aggregate_fn(arena.buffer, arena.weights, mask)
+            return out[: arena.num_params]
+
+    # -------------------------------------------------------------- lifecycle
+    def shutdown(self) -> None:
+        """Stop the engine's dispatch executor (waits for in-flight tasks)."""
+        self.engine.shutdown()
