@@ -15,7 +15,9 @@ nothing of the JAX package.  Phases, each printing its own lines:
              devices sum in different orders across local steps);
 5. main    — ``launch/train.main`` at full width (housing-mlp-10m, 32
              learners, 3 sync rounds, f32 arena, raw codec), then the stack
-             store's leg; each leg's launch counts are zeroed just before it
+             store's leg through ``Driver``/``FederationEnv`` with a lineage
+             of two models per learner, which makes the Driver pick the
+             stack store; each leg's launch counts are zeroed just before it
              and read just after.
 
 Any failure exits non-zero before the result line.  Without CUDA, or without
@@ -40,6 +42,9 @@ P_MAIN = 10_174_464  # housing-mlp-10m row, padded to the arena's 1024 alignment
 P_STACK = 10_174_081  # housing-mlp-10m params: the stack leg's unpadded rows
 N_MAIN = 32
 ROUNDS = 3
+LOCAL_STEPS = 4
+BATCH = 100
+LR = 0.05
 
 
 def main() -> None:
@@ -80,7 +85,7 @@ def main() -> None:
     # -- 3. kernels -----------------------------------------------------------
     t_phase = time.perf_counter()
     errs = check_kernels(kfed, dev)
-    timing = time_kernels(kfed, dev)
+    timing = time_kernels(kfed, dev, errs)
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t_phase}),
           flush=True)
 
@@ -103,14 +108,15 @@ def main() -> None:
 
     # -- 5. main path ---------------------------------------------------------
     full = ["--arch", "housing-mlp", "--size", "10m", "--learners", str(N_MAIN),
-            "--local-steps", "4", "--batch-size", "100", "--device", "cuda"]
+            "--rounds", str(ROUNDS), "--local-steps", str(LOCAL_STEPS),
+            "--batch-size", str(BATCH), "--lr", str(LR), "--seed", "0",
+            "--device", "cuda"]
     launches = {}
-    for leg, extra in (("arena", ["--rounds", str(ROUNDS)]),
-                       ("stack", ["--rounds", str(ROUNDS), "--store-mode", "stack"])):
+    for leg in ("arena", "stack"):
         kfed.masked_fedavg_cuda.launches = 0
         kfed.fedavg_cuda.launches = 0
         t_phase = time.perf_counter()
-        driver, history = train.main(full + extra)
+        driver, history = train.main(full) if leg == "arena" else run_stack_leg(train, dev)
         counts = {"masked_fedavg": kfed.masked_fedavg_cuda.launches,
                   "fedavg": kfed.fedavg_cuda.launches}
         c = driver.controller
@@ -172,6 +178,26 @@ def main() -> None:
           flush=True)
 
 
+def run_stack_leg(train, dev):
+    """The stack store's leg as users reach it: ``lineage_length=2`` makes the
+    Driver pick the stack store, which re-stacks the rows every round and
+    reduces them with the unmasked kernel.  Same model, data and seed as the
+    arena leg's ``launch/train.main``."""
+    from repro_torch import optim
+    from repro_torch.core import Driver, FederationEnv, TerminationCriteria
+    from repro_torch.models import mlp as mlp_model
+
+    cfg, learners = train.build_housing_learners("10m", N_MAIN, seed=0,
+                                                 optimizer=optim.sgd(LR), device=dev)
+    initial = mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev)
+    env = FederationEnv(protocol="sync", local_steps=LOCAL_STEPS, batch_size=BATCH,
+                        learning_rate=LR, lineage_length=2,
+                        termination=TerminationCriteria(max_rounds=ROUNDS), device=dev)
+    driver = Driver(env)
+    driver.initialize(initial, learners)
+    return driver, driver.run()
+
+
 def _close(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     return float((got - want).abs().max())
@@ -183,7 +209,7 @@ def check_kernels(kfed, dev) -> dict:
     worst = {"masked_fedavg": 0.0, "fedavg": 0.0}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
         for n in (1, 7, 32, 64):
-            for p in (1024, 50_001, P_MAIN):
+            for p in (1024, 50_001, P_STACK, P_MAIN):
                 arena = (torch.randn((n, p), generator=gen, device=dev) * 3).to(dtype)
                 w = torch.rand((n,), generator=gen, device=dev) + 0.05
                 e_plain = _close(kfed.fedavg_cuda(arena, w), kfed.fedavg_torch(arena, w), tol)
@@ -247,9 +273,11 @@ def _bound(n: int, p: int, itemsize: int) -> tuple[float, str]:
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
-def time_kernels(kfed, dev) -> dict:
+def time_kernels(kfed, dev, errs: dict) -> dict:
     """Kernel, plain and library times at the shapes the main path gives each
-    kernel: the arena's (32, 10,174,464) f32 and the stack's (32, 10,174,081)."""
+    kernel: the arena's (32, 10,174,464) f32 and the stack's (32, 10,174,081).
+    Each kernel is first held against its plain version on the very inputs it
+    is timed on; the error joins the kernel's worst in ``errs``."""
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for name, p in (("masked_fedavg", P_MAIN), ("fedavg", P_STACK)):
@@ -264,6 +292,8 @@ def time_kernels(kfed, dev) -> dict:
             kern = lambda: kfed.fedavg_cuda(rows, w)  # noqa: E731
             plain = lambda: kfed.fedavg_torch(rows, w)  # noqa: E731
         library = lambda: torch.mv(rows.T, w_hat)  # noqa: E731
+        err = _close(kern(), plain(), 1e-5)
+        errs[name] = max(errs[name], err)
         # Interleaved (plain, kernel, kernel, plain) so drift hits both alike.
         t_plain_a = _time_ms(plain)
         t_kern_a = _time_ms(kern)
@@ -274,6 +304,7 @@ def time_kernels(kfed, dev) -> dict:
         out[name] = {"ms": min(t_kern_a, t_kern_b), "plain_ms": min(t_plain_a, t_plain_b),
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib}
         print(json.dumps({"phase": "kernels", "timed": name, "n": N_MAIN, "p": p,
+                          "max_abs_err": err,
                           "kernel_ms": [t_kern_a, t_kern_b],
                           "plain_ms": [t_plain_a, t_plain_b], "library_ms": t_lib,
                           "bound_ms": bound_ms, "launches_per_round": 1}), flush=True)

@@ -152,6 +152,9 @@ class Learner:
             params, opt_state, loss = step(params, opt_state, batch)
         # The card returns before it finishes: wait so seconds_per_step (what
         # task sizing consumes) measures the training work, not its launch.
+        # Learner threads share the default stream, so on the card this also
+        # waits for the work other learners queued: seconds_per_step is a
+        # cohort-wide queue time until each learner gets a stream of its own.
         synchronize(self.device)
         elapsed = time.perf_counter() - t0
         buffer = upload = None

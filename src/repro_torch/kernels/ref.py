@@ -1,8 +1,9 @@
 """Oracles for the port's kernels: torch f32 references and f64 numpy ones.
 
 The port of ``repro/kernels/ref.py`` for the slice's kernels.  The f32
-versions restate the reference's einsum; the f64 versions are host numpy,
-so they stay genuine f64 whatever the device.
+references are the kernels' plain versions in :mod:`repro_torch.kernels.fedavg`
+under the reference's names, so there is one plain version to keep in step.
+The f64 versions are independent host numpy, genuine f64 whatever the device.
 
 One deliberate difference: :func:`fedavg_ref` normalizes like the
 controller's ``aggregation._normalize`` (uniform weights when they sum to 0)
@@ -15,33 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.fedavg import fedavg_torch as fedavg_ref
+from repro_torch.kernels.fedavg import masked_fedavg_torch as masked_fedavg_ref
+
 __all__ = ["fedavg_ref", "masked_fedavg_ref", "fedavg_f64", "masked_fedavg_f64"]
-
-
-def fedavg_ref(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """(N, P) x (N,) -> (P,) normalized weighted mean in f32."""
-    w = weights.to(torch.float32)
-    total = w.sum()
-    uniform = torch.full_like(w, 1.0 / max(w.shape[0], 1))
-    w = torch.where(total > 0, w / torch.where(total > 0, total, 1.0), uniform)
-    return torch.einsum("n,np->p", w, stack.to(torch.float32))
-
-
-def masked_fedavg_ref(
-    arena: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor
-) -> torch.Tensor:
-    """(N, P) x (N,) x (N,) -> (P,) masked normalized weighted mean in f32.
-
-    Uniform-over-valid fallback when all masked weights are zero; dead rows
-    are zeroed before the reduce so NaN in them cannot leak.
-    """
-    m = mask.to(torch.float32)
-    w = weights.to(torch.float32) * m
-    total = w.sum()
-    w = torch.where(total > 0, w / torch.where(total > 0, total, 1.0),
-                    m / torch.clamp(m.sum(), min=1.0))
-    rows = torch.where(m[:, None] > 0, arena.to(torch.float32), 0.0)
-    return torch.einsum("n,np->p", w, rows)
 
 
 def _f64(x) -> np.ndarray:

@@ -82,8 +82,6 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.05)
-    ap.add_argument("--store-mode", default="auto", choices=["auto", "arena", "stack"],
-                    help="arena (the default pick) or the stack store's re-stack leg")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -108,7 +106,6 @@ def main(argv: list[str] | None = None):
         local_steps=args.local_steps,
         batch_size=args.batch_size,
         learning_rate=args.lr,
-        store_mode=args.store_mode,
         termination=TerminationCriteria(max_rounds=args.rounds),
         device=device,
     )
