@@ -6,21 +6,33 @@ Drives the port (``src/repro_torch``) only; imports nothing of JAX and
 nothing of the JAX package.  Phases, each printing its own lines:
 
 1. env     — torch/CUDA versions and the card's name and power limit;
-2. build   — nvcc builds ``kernels/csrc/fedavg.cu`` for sm_90a;
+2. build   — nvcc builds ``kernels/csrc/*.cu`` for sm_90a, one process per
+             source, all at once;
 3. kernels — every hand-written kernel against its plain PyTorch version on
-             the card (f32 atol=rtol=1e-5, bf16 atol=rtol=3e-2), NaN dead rows,
-             all-zero weights, the empty mask; timings at the main path's shape;
-4. check   — a small federation on the card agrees with the same federation
-             on the host (global buffer, rtol 1e-4 / atol 1e-5: the two
-             devices sum in different orders across local steps);
-5. main    — ``launch/train.main`` at full width (housing-mlp-10m, 32
-             learners, 3 sync rounds, f32 arena, raw codec), then the stack
-             store's leg through ``Driver``/``FederationEnv`` with a lineage
-             of two models per learner, which makes the Driver pick the
-             stack store; each leg's launch counts are zeroed just before it
+             the card: FedAvg (f32 atol=rtol=1e-5, bf16 3e-2; NaN dead rows,
+             all-zero weights, the empty mask); quantize and dequantize
+             bit-identical (groups 256 and 512, with NaN, ±inf, all-zero and
+             subnormal groups); the fused dequant-into-aggregate
+             (atol=rtol=2e-5; NaN and 1e30 dead-row scales, zero weights,
+             the empty mask); timings at the main path's shapes;
+4. check   — small federations on the card agree with the same federations
+             on the host: f32 (global buffer, rtol 1e-4 / atol 1e-5: the two
+             devices sum in different orders across local steps), then the
+             int8 uplink on the int8 arena and the ``--quantize`` downlink
+             (every coordinate within one quantization step of its group
+             plus 1e-5, fewer than 0.1% beyond rtol 1e-4 / atol 1e-5: an
+             int8 code may flip by one where the sums differ);
+5. main    — housing-mlp-10m, 32 learners, 3 sync rounds, four legs:
+             ``launch/train.main`` (f32 arena, raw codec); the stack store
+             through ``Driver``/``FederationEnv`` with a lineage of two models
+             per learner; ``int8_arena`` (int8 uplink into the int8-resident
+             arena, fused reduce); ``int8_wire`` (int8 uplink decoded onto the
+             f32 arena).  Each leg's launch counts are zeroed just before it
              and read just after.
 
-Any failure exits non-zero before the result line.  Without CUDA, or without
+A disagreement found in the kernels or check phases is printed and recorded,
+and the script goes on, so one call shows every fault; any recorded or
+raised failure exits non-zero before the result line.  Without CUDA, or without
 the repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
 
@@ -34,6 +46,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -41,10 +54,20 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 P_MAIN = 10_174_464  # housing-mlp-10m row, padded to the arena's 1024 alignment
 P_STACK = 10_174_081  # housing-mlp-10m params: the stack leg's unpadded rows
 N_MAIN = 32
+GROUP = 256
 ROUNDS = 3
 LOCAL_STEPS = 4
 BATCH = 100
 LR = 0.05
+INT8_ROW_BYTES = 10_333_440  # wire_layout(P_MAIN): 10,174,464 int8 + 39,744 f32 scales
+FAILURES: list[str] = []  # disagreements found by the kernels and check phases
+
+
+def _expect(ok: bool, what: str) -> None:
+    """Record (and print) a failed check; main() fails on any before its result."""
+    if not ok:
+        FAILURES.append(what)
+        print(json.dumps({"failed": what}), flush=True)
 
 
 def main() -> None:
@@ -59,9 +82,14 @@ def main() -> None:
     from repro_torch.device import full_f32
     from repro_torch.kernels import _build
     from repro_torch.kernels import fedavg as kfed
+    from repro_torch.kernels import fused_agg as kfu
+    from repro_torch.kernels import quantize as kq
 
     full_f32()
     dev = torch.device("cuda")
+    counters = {"masked_fedavg": kfed.masked_fedavg_cuda, "fedavg": kfed.fedavg_cuda,
+                "quantize": kq.quantize_cuda, "dequantize": kq.dequantize_cuda,
+                "masked_fedavg_q8": kfu.masked_fedavg_q8_cuda}
 
     # -- 1. env ---------------------------------------------------------------
     smi = subprocess.run(
@@ -86,10 +114,13 @@ def main() -> None:
     t_phase = time.perf_counter()
     errs = check_kernels(kfed, dev)
     timing = time_kernels(kfed, dev, errs)
+    errs.update(check_quantize(kq, dev))
+    errs["masked_fedavg_q8"] = check_fused(kfu, dev)
+    timing.update(time_int8_kernels(kq, kfu, dev, errs))
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t_phase}),
           flush=True)
 
-    # -- 4. check: the card agrees with the host on a small federation -------
+    # -- 4. check: the card agrees with the host on small federations --------
     from repro_torch.launch import train
 
     t_phase = time.perf_counter()
@@ -100,9 +131,21 @@ def main() -> None:
     d_cpu, _ = train.main(small + ["--device", "cpu"])
     g = d_gpu.controller.global_buffer.cpu()
     h = d_cpu.controller.global_buffer
-    check_err = float((g - h).abs().max())
-    torch.testing.assert_close(g, h, rtol=1e-4, atol=1e-5)
-    print(json.dumps({"phase": "check", "max_abs_err_vs_host": check_err,
+    checks = {"f32": _close(g, h, 1e-4, atol=1e-5, what="check f32 card vs host")}
+    small_fed = dict(size="100k", learners=4, rounds=2, local_steps=2, lr=0.01)
+    d_gpu, _ = run_federation(train, dev, upload_codec="int8", arena_dtype="int8", **small_fed)
+    d_cpu, _ = run_federation(train, torch.device("cpu"), upload_codec="int8",
+                              arena_dtype="int8", **small_fed)
+    assert d_gpu.controller.arena.buffer.dtype == torch.int8
+    checks["int8_arena"] = within_q8_bar(d_gpu.controller.global_buffer.cpu(),
+                                         d_cpu.controller.global_buffer, "check int8_arena")
+    d_gpu, _ = train.main(small + ["--quantize", "--device", "cuda"])
+    d_cpu, _ = train.main(small + ["--quantize", "--device", "cpu"])
+    assert d_gpu.controller.channel.codec is not None
+    checks["quantize_downlink"] = within_q8_bar(d_gpu.controller.global_buffer.cpu(),
+                                                d_cpu.controller.global_buffer,
+                                                "check quantize downlink")
+    print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     del d_gpu, d_cpu
 
@@ -111,40 +154,72 @@ def main() -> None:
             "--rounds", str(ROUNDS), "--local-steps", str(LOCAL_STEPS),
             "--batch-size", str(BATCH), "--lr", str(LR), "--seed", "0",
             "--device", "cuda"]
-    launches = {}
-    for leg in ("arena", "stack"):
-        kfed.masked_fedavg_cuda.launches = 0
-        kfed.fedavg_cuda.launches = 0
+    main_fed = dict(size="10m", learners=N_MAIN, rounds=ROUNDS, local_steps=LOCAL_STEPS,
+                    lr=LR)
+    legs = {
+        "arena": lambda: train.main(full),
+        "stack": lambda: run_federation(train, dev, lineage_length=2, **main_fed),
+        "int8_arena": lambda: run_federation(train, dev, upload_codec="int8",
+                                             arena_dtype="int8", **main_fed),
+        "int8_wire": lambda: run_federation(train, dev, upload_codec="int8", **main_fed),
+    }
+    expected = {
+        "arena": {"masked_fedavg": ROUNDS},
+        "stack": {"fedavg": ROUNDS},
+        "int8_arena": {"quantize": N_MAIN * ROUNDS, "masked_fedavg_q8": ROUNDS},
+        "int8_wire": {"quantize": N_MAIN * ROUNDS, "dequantize": N_MAIN * ROUNDS,
+                      "masked_fedavg": ROUNDS},
+    }
+    launches = dict.fromkeys(counters, 0)
+    resident = {}
+    for leg, run in legs.items():
+        for fn in counters.values():
+            fn.launches = 0
         t_phase = time.perf_counter()
-        driver, history = train.main(full) if leg == "arena" else run_stack_leg(train, dev)
-        counts = {"masked_fedavg": kfed.masked_fedavg_cuda.launches,
-                  "fedavg": kfed.fedavg_cuda.launches}
+        driver, history = run()
+        counts = {name: fn.launches for name, fn in counters.items()}
         c = driver.controller
         for h_ in history:
             print(json.dumps({"phase": f"main.{leg}", "round": h_.round_id,
                               "aggregation_s": h_.aggregation_s,
                               "federation_round_s": h_.federation_round_s,
                               "train_round_s": h_.train_round_s,
+                              "eval_round_s": h_.eval_round_s,
                               "eval_loss": h_.metrics["eval_loss"]}), flush=True)
             assert math.isfinite(h_.metrics["eval_loss"]), h_.metrics
         assert len(history) == ROUNDS, len(history)
+        assert counts == {**dict.fromkeys(counters, 0), **expected[leg]}, (leg, counts)
         up = c.channel.stats.upload_bytes
-        if leg == "arena":
-            assert c.arena.buffer.device.type == "cuda", c.arena.buffer.device
-            assert tuple(c.arena.buffer.shape) == (N_MAIN, P_MAIN), c.arena.buffer.shape
-            assert c.arena.buffer.dtype == torch.float32
-            assert counts == {"masked_fedavg": ROUNDS, "fedavg": 0}, counts
-            assert up == N_MAIN * ROUNDS * 4 * P_MAIN, up
-        else:
+        tel = c.telemetry
+        if leg == "stack":
             assert c.arena is None and c.store_mode == "stack"
-            assert counts == {"masked_fedavg": 0, "fedavg": ROUNDS}, counts
             assert up == N_MAIN * ROUNDS * 4 * P_STACK, up
+        else:
+            arena = c.arena
+            resident[leg] = tel.value("store.arena.bytes_resident")
+            assert arena.buffer.device.type == "cuda", arena.buffer.device
+            assert tuple(arena.buffer.shape) == (N_MAIN, P_MAIN), arena.buffer.shape
+        if leg == "arena":
+            assert c.arena.buffer.dtype == torch.float32
+            assert up == N_MAIN * ROUNDS * 4 * P_MAIN, up
+        if leg.startswith("int8"):
+            assert up == N_MAIN * ROUNDS * INT8_ROW_BYTES, up
+            direct = N_MAIN * ROUNDS if leg == "int8_arena" else 0
+            assert tel.value("engine.uploads.quantized_direct") == direct
+            assert tel.value("controller.aggregations.fused_q8") == (ROUNDS if direct else 0)
+        if leg == "int8_arena":
+            assert c.arena.buffer.dtype == torch.int8
+            assert c.arena.scales.dtype == torch.float32
+            assert c.arena.scales.device.type == "cuda"
+            assert tuple(c.arena.scales.shape) == (N_MAIN, P_MAIN // GROUP)
+            shrink = resident["arena"] / resident["int8_arena"]
+            assert 3.8 < shrink < 4.0, shrink
         assert torch.isfinite(c.global_buffer).all()
-        launches.update({k: v for k, v in counts.items() if v})
+        for name, v in counts.items():
+            launches[name] += v
         # Where a round's time goes, from the run's own telemetry: summed
         # host seconds of each wire half (across learner threads, so they
         # overlap) and the learners' EWMA seconds per local step.
-        tel = c.telemetry
         steps = [p["seconds_per_step"] for p in c._learner_profiles.values()]
         print(json.dumps({"phase": f"main.{leg}", "breakdown": {
             "broadcast_serialize_s": tel.value("channel.serialize_s"),
@@ -157,17 +232,28 @@ def main() -> None:
         print(json.dumps({"phase": f"main.{leg}", "launches": counts,
                           "upload_bytes": up,
                           "upload_meta_bytes": c.channel.stats.upload_meta_bytes,
+                          "bytes_resident": resident.get(leg),
+                          "quantized_direct": tel.value("engine.uploads.quantized_direct"),
+                          "fused_q8": tel.value("controller.aggregations.fused_q8"),
                           "global_buffer": list(c.global_buffer.shape),
                           "seconds": time.perf_counter() - t_phase}), flush=True)
         del driver, history, c
         torch.cuda.empty_cache()
 
+    if FAILURES:
+        sys.exit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
     rows = []
-    for name, replaces in (("masked_fedavg", "src/repro/kernels/fedavg.py:181"),
-                           ("fedavg", "src/repro/kernels/fedavg.py:126")):
+    for name, source, replaces in (
+        ("masked_fedavg", "fedavg.cu", "src/repro/kernels/fedavg.py:181"),
+        ("fedavg", "fedavg.cu", "src/repro/kernels/fedavg.py:126"),
+        ("quantize", "quantize.cu", "src/repro/kernels/quantize.py:105"),
+        ("dequantize", "quantize.cu", "src/repro/kernels/quantize.py:143"),
+        ("masked_fedavg_q8", "fused_agg.cu", "src/repro/kernels/fused_agg.py:150"),
+    ):
+        assert launches[name] > 0, (name, launches)
         rows.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fedavg.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], **timing[name],
         })
@@ -178,33 +264,60 @@ def main() -> None:
           flush=True)
 
 
-def run_stack_leg(train, dev):
-    """The stack store's leg as users reach it: ``lineage_length=2`` makes the
-    Driver pick the stack store, which re-stacks the rows every round and
-    reduces them with the unmasked kernel.  Same model, data and seed as the
-    arena leg's ``launch/train.main``."""
+def run_federation(train, dev, size, learners, rounds, local_steps, lr, **env):
+    """One federation as users reach it: ``Driver``/``FederationEnv`` with the
+    launcher's learners (same model, data and seed as ``launch/train.main``).
+
+    ``lineage_length=2`` makes the Driver pick the stack store;
+    ``upload_codec``/``arena_dtype`` select the int8 legs.
+    """
     from repro_torch import optim
     from repro_torch.core import Driver, FederationEnv, TerminationCriteria
     from repro_torch.models import mlp as mlp_model
 
-    cfg, learners = train.build_housing_learners("10m", N_MAIN, seed=0,
-                                                 optimizer=optim.sgd(LR), device=dev)
+    cfg, fleet = train.build_housing_learners(size, learners, seed=0,
+                                              optimizer=optim.sgd(lr), device=dev)
     initial = mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev)
-    env = FederationEnv(protocol="sync", local_steps=LOCAL_STEPS, batch_size=BATCH,
-                        learning_rate=LR, lineage_length=2,
-                        termination=TerminationCriteria(max_rounds=ROUNDS), device=dev)
-    driver = Driver(env)
-    driver.initialize(initial, learners)
+    driver = Driver(FederationEnv(protocol="sync", local_steps=local_steps, batch_size=BATCH,
+                                  learning_rate=lr,
+                                  termination=TerminationCriteria(max_rounds=rounds),
+                                  device=dev, **env))
+    driver.initialize(initial, fleet)
     return driver, driver.run()
 
 
-def _close(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-    return float((got - want).abs().max())
+def within_q8_bar(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Every coordinate within one quantization step of its group (amax/127 of
+    ``want``) plus 1e-5, fewer than 0.1% beyond rtol 1e-4 / atol 1e-5; returns
+    the largest error."""
+    got, want = got.double(), want.double()
+    n = want.shape[0]
+    padded = torch.nn.functional.pad(want.abs(), (0, (-n) % GROUP))
+    step = padded.reshape(-1, GROUP).amax(1).repeat_interleave(GROUP)[:n] / 127.0
+    err = (got - want).abs()
+    beyond = float((err - step - 1e-5).max())
+    _expect(beyond <= 0, f"{what}: {beyond} beyond one quantization step")
+    loose = float((err > 1e-5 + 1e-4 * want.abs()).double().mean())
+    _expect(loose < 1e-3, f"{what}: {loose} of coordinates beyond rtol 1e-4 / atol 1e-5")
+    return float(err.max())
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, tol: float, atol: float | None = None,
+           what: str = "") -> float:
+    """Max abs error of ``got`` against ``want``; a miss of
+    ``|got - want| <= atol + tol * |want|`` (NaN where ``want`` has none
+    included) is recorded."""
+    atol = tol if atol is None else atol
+    diff = (got.double() - want.double()).abs()
+    bad = int((~(diff <= atol + tol * want.double().abs())).sum())
+    err = float(diff.nan_to_num(float("inf")).max())
+    _expect(bad == 0, f"{what or 'kernel'}: {bad} elements beyond rtol={tol} atol={atol}, "
+                      f"max abs err {err}")
+    return err
 
 
 def check_kernels(kfed, dev) -> dict:
-    """Both kernels against their plain versions at every listed shape."""
+    """Both FedAvg kernels against their plain versions at every listed shape."""
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"masked_fedavg": 0.0, "fedavg": 0.0}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
@@ -212,13 +325,15 @@ def check_kernels(kfed, dev) -> dict:
             for p in (1024, 50_001, P_STACK, P_MAIN):
                 arena = (torch.randn((n, p), generator=gen, device=dev) * 3).to(dtype)
                 w = torch.rand((n,), generator=gen, device=dev) + 0.05
-                e_plain = _close(kfed.fedavg_cuda(arena, w), kfed.fedavg_torch(arena, w), tol)
+                e_plain = _close(kfed.fedavg_cuda(arena, w), kfed.fedavg_torch(arena, w), tol,
+                                 what=f"fedavg {dtype} {n}x{p}")
                 # Every third row dead (none when n == 1), filled with NaN.
                 m = torch.ones((n,), device=dev)
                 m[1::3] = 0.0
                 arena[m == 0] = float("nan")
                 e_mask = _close(kfed.masked_fedavg_cuda(arena, w, m),
-                                kfed.masked_fedavg_torch(arena, w, m), tol)
+                                kfed.masked_fedavg_torch(arena, w, m), tol,
+                                what=f"masked_fedavg {dtype} {n}x{p}")
                 torch.cuda.synchronize()
                 print(json.dumps({"phase": "kernels", "dtype": str(dtype), "n": n, "p": p,
                                   "fedavg_err": e_plain, "masked_err": e_mask, "tol": tol}),
@@ -239,10 +354,104 @@ def check_kernels(kfed, dev) -> dict:
         _close(got, arena.float()[m > 0].mean(0), tol)
         got = kfed.masked_fedavg_cuda(arena, torch.rand((n,), device=dev),
                                       torch.zeros((n,), device=dev))
-        assert torch.count_nonzero(got) == 0, "the empty mask must give zeros"
+        _expect(int(torch.count_nonzero(got)) == 0, "masked_fedavg: the empty mask must give 0")
         print(json.dumps({"phase": "kernels", "dtype": str(dtype),
                           "zero_weights_uniform": True, "empty_mask_zeros": True}),
               flush=True)
+    return worst
+
+
+def special_input(size: int, group: int, seed: int) -> np.ndarray:
+    """Normal data plus groups of zeros, subnormals, NaN, ±inf, a subnormal
+    scale and huge values (the first eight groups)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(size, dtype=np.float32) * 5).astype(np.float32)
+    x[:group] = 0.0
+    x[group: 2 * group] = (rng.standard_normal(group) * 1e-39).astype(np.float32)
+    x[2 * group + 3] = np.nan
+    x[3 * group + 5] = np.inf
+    x[4 * group + 7] = -np.inf
+    x[5 * group: 6 * group] = (rng.standard_normal(group) * 1e-37).astype(np.float32)
+    x[6 * group: 7 * group] *= np.float32(1e30)
+    x[7 * group] = np.nan
+    x[7 * group + 1] = np.inf
+    return x
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_quantize(kq, dev) -> dict:
+    """Quantize and dequantize against their plain versions: bit-identical
+    ``q``, scales and output at every size and group, special groups included."""
+    from repro_torch.kernels import ops
+
+    for size in (16_384, 100_000, P_MAIN):
+        for group in (256, 512):
+            x = torch.from_numpy(special_input(size, group, seed=size + group)).to(dev)
+            q, s = ops.quantize(x, group=group)  # pads to group * 64 like the reference
+            padded = torch.nn.functional.pad(x, (0, q.shape[0] - size))
+            pq, ps = kq.quantize_torch(padded, group)
+            bad_q = int((q != pq).sum())
+            bad_s = int((s.view(torch.int32) != ps.view(torch.int32)).sum())
+            back = kq.dequantize_cuda(q, s, group)
+            want = kq.dequantize_torch(q, s, group)
+            bad_x = int((back.view(torch.int32) != want.view(torch.int32)).sum())
+            torch.cuda.synchronize()
+            print(json.dumps({"phase": "kernels", "quantize": size, "group": group,
+                              "padded": q.shape[0], "q_mismatch": bad_q,
+                              "scale_mismatch": bad_s, "dequantize_mismatch": bad_x,
+                              "special_scales": s[:8].tolist()}), flush=True)
+            _expect(bad_q == bad_s == bad_x == 0,
+                    f"quantize/dequantize {size} group {group}: {bad_q} q, {bad_s} scales, "
+                    f"{bad_x} dequantized values differ from the plain versions")
+            del x, q, s, padded, pq, ps, back, want
+    return {"quantize": 0.0, "dequantize": 0.0}
+
+
+def _q8_inputs(n: int, p: int, gen: torch.Generator, dev) -> tuple:
+    q = torch.randint(-127, 128, (n, p), generator=gen, device=dev, dtype=torch.int8)
+    s = torch.rand((n, p // GROUP), generator=gen, device=dev) * 5 + 0.01
+    w = torch.rand((n,), generator=gen, device=dev) * 49 + 1
+    return q, s, w
+
+
+def check_fused(kfu, dev) -> float:
+    """The fused dequant-into-aggregate against its plain version (2e-5)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    for n in (1, 7, 32, 64):
+        for p in (4096, 2304, P_MAIN):
+            q, s, w = _q8_inputs(n, p, gen, dev)
+            m = torch.ones((n,), device=dev)
+            m[1::3] = 0.0
+            err = _close(kfu.masked_fedavg_q8_cuda(q, s, w, m),
+                         kfu.masked_fedavg_q8_torch(q, s, w, m), 2e-5,
+                         what=f"masked_fedavg_q8 {n}x{p}")
+            # Dead rows carrying garbage: NaN and 1e30 scales, saturated values.
+            s[1::3] = float("nan")
+            s[4::6] = 1e30
+            q[m == 0] = 127
+            got = kfu.masked_fedavg_q8_cuda(q, s, w, m)
+            err = max(err, _close(got, kfu.masked_fedavg_q8_torch(q, s, w, m), 2e-5,
+                                  what=f"masked_fedavg_q8 {n}x{p} dead-row garbage"))
+            worst = max(worst, err)
+            torch.cuda.synchronize()
+            print(json.dumps({"phase": "kernels", "masked_fedavg_q8": [n, p],
+                              "max_abs_err": err, "tol": 2e-5}), flush=True)
+            del q, s
+    n, p = 7, 2304
+    q, s, _ = _q8_inputs(n, p, gen, dev)
+    m = torch.ones((n,), device=dev)
+    m[::2] = 0.0
+    zero_w = torch.zeros((n,), device=dev)
+    _close(kfu.masked_fedavg_q8_cuda(q, s, zero_w, m),  # uniform over valid rows
+           kfu.dequant_rows(q, s)[m > 0].mean(0), 2e-5, what="masked_fedavg_q8 zero weights")
+    got = kfu.masked_fedavg_q8_cuda(q, s, zero_w + 1, torch.zeros((n,), device=dev))
+    _expect(int(torch.count_nonzero(got)) == 0, "masked_fedavg_q8: the empty mask must give 0")
+    print(json.dumps({"phase": "kernels", "masked_fedavg_q8": "degenerate",
+                      "zero_weights_uniform": True, "empty_mask_zeros": True}), flush=True)
     return worst
 
 
@@ -265,19 +474,34 @@ def _time_ms(fn, samples: int = 20, inner: int = 10) -> float:
     return statistics.median(out)
 
 
-def _bound(n: int, p: int, itemsize: int) -> tuple[float, str]:
-    """Least time on the card: bytes (each input read once, the output written
-    once) over HBM rate, or f32 FMAs over the f32 peak, whichever is larger."""
-    t_bytes = (n * p * itemsize + 4 * p + 8 * n) / HBM_BYTES_PER_S
-    t_ops = 2 * n * p / F32_FLOPS
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time on the card: the bytes the function must move (each input
+    read once, each output written once) over the HBM rate, or its f32
+    operations over the f32 peak, whichever is larger (ms)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def _timed(name: str, kern, plain, library, nbytes: float, flops: float, shape) -> dict:
+    """Interleaved (plain, kernel, kernel, plain) so drift hits both alike."""
+    t_plain_a = _time_ms(plain)
+    t_kern_a = _time_ms(kern)
+    t_kern_b = _time_ms(kern)
+    t_plain_b = _time_ms(plain)
+    t_lib = _time_ms(library) if library is not None else None
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(json.dumps({"phase": "kernels", "timed": name, "shape": shape,
+                      "kernel_ms": [t_kern_a, t_kern_b], "plain_ms": [t_plain_a, t_plain_b],
+                      "library_ms": t_lib, "bound_ms": bound_ms}), flush=True)
+    return {"ms": min(t_kern_a, t_kern_b), "plain_ms": min(t_plain_a, t_plain_b),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib}
 
 
 def time_kernels(kfed, dev, errs: dict) -> dict:
     """Kernel, plain and library times at the shapes the main path gives each
-    kernel: the arena's (32, 10,174,464) f32 and the stack's (32, 10,174,081).
-    Each kernel is first held against its plain version on the very inputs it
-    is timed on; the error joins the kernel's worst in ``errs``."""
+    FedAvg kernel: the arena's (32, 10,174,464) f32 and the stack's
+    (32, 10,174,081).  Each kernel is first held against its plain version on
+    the very inputs it is timed on; the error joins the kernel's worst."""
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for name, p in (("masked_fedavg", P_MAIN), ("fedavg", P_STACK)):
@@ -291,25 +515,51 @@ def time_kernels(kfed, dev, errs: dict) -> dict:
         else:
             kern = lambda: kfed.fedavg_cuda(rows, w)  # noqa: E731
             plain = lambda: kfed.fedavg_torch(rows, w)  # noqa: E731
-        library = lambda: torch.mv(rows.T, w_hat)  # noqa: E731
-        err = _close(kern(), plain(), 1e-5)
-        errs[name] = max(errs[name], err)
-        # Interleaved (plain, kernel, kernel, plain) so drift hits both alike.
-        t_plain_a = _time_ms(plain)
-        t_kern_a = _time_ms(kern)
-        t_kern_b = _time_ms(kern)
-        t_plain_b = _time_ms(plain)
-        t_lib = _time_ms(library)
-        bound_ms, bound_by = _bound(N_MAIN, p, 4)
-        out[name] = {"ms": min(t_kern_a, t_kern_b), "plain_ms": min(t_plain_a, t_plain_b),
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib}
-        print(json.dumps({"phase": "kernels", "timed": name, "n": N_MAIN, "p": p,
-                          "max_abs_err": err,
-                          "kernel_ms": [t_kern_a, t_kern_b],
-                          "plain_ms": [t_plain_a, t_plain_b], "library_ms": t_lib,
-                          "bound_ms": bound_ms, "launches_per_round": 1}), flush=True)
+        errs[name] = max(errs[name], _close(kern(), plain(), 1e-5, what=f"{name} timed inputs"))
+        out[name] = _timed(name, kern, plain, lambda: torch.mv(rows.T, w_hat),
+                           N_MAIN * p * 4 + 4 * p + 8 * N_MAIN, 2 * N_MAIN * p, [N_MAIN, p])
         del rows
         torch.cuda.empty_cache()
+    return out
+
+
+def time_int8_kernels(kq, kfu, dev, errs: dict) -> dict:
+    """The int8 kernels at the main path's shapes: quantize and dequantize on
+    one learner's (10,174,464,) row at group 256 (every upload's encode and,
+    on the int8-wire leg, decode), the fused reduce on the (32, 10,174,464)
+    int8 arena with its (32, 39,744) scales.  Each is held against its plain
+    version on the very inputs it is timed on first."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    p, groups = P_MAIN, P_MAIN // GROUP
+    x = torch.randn((p,), generator=gen, device=dev) * 3
+    q, s = kq.quantize_cuda(x, GROUP)
+    pq, ps = kq.quantize_torch(x, GROUP)
+    _expect(torch.equal(q, pq) and _same_bits(s, ps), "quantize differs on the timed inputs")
+    out["quantize"] = _timed("quantize", lambda: kq.quantize_cuda(x, GROUP),
+                             lambda: kq.quantize_torch(x, GROUP), None,
+                             4 * p + p + 4 * groups, 6 * p, [p])
+    _expect(_same_bits(kq.dequantize_cuda(q, s, GROUP), kq.dequantize_torch(q, s, GROUP)),
+            "dequantize differs on the timed inputs")
+    qg = q.view(groups, GROUP)
+    _expect(_same_bits(torch.mul(qg, s[:, None]).reshape(-1), kq.dequantize_torch(q, s, GROUP)),
+            "the library dequantize differs from the plain version")
+    out["dequantize"] = _timed("dequantize", lambda: kq.dequantize_cuda(q, s, GROUP),
+                               lambda: kq.dequantize_torch(q, s, GROUP),
+                               lambda: torch.mul(qg, s[:, None]),
+                               p + 4 * groups + 4 * p, p, [p])
+    del x, q, s, pq, ps, qg
+    aq, ascale, w = _q8_inputs(N_MAIN, p, gen, dev)
+    m = torch.ones((N_MAIN,), device=dev)
+    kern = lambda: kfu.masked_fedavg_q8_cuda(aq, ascale, w, m)  # noqa: E731
+    plain = lambda: kfu.masked_fedavg_q8_torch(aq, ascale, w, m)  # noqa: E731
+    errs["masked_fedavg_q8"] = max(errs["masked_fedavg_q8"],
+                                   _close(kern(), plain(), 2e-5, what="q8 timed inputs"))
+    out["masked_fedavg_q8"] = _timed(
+        "masked_fedavg_q8", kern, plain, None,
+        N_MAIN * p + 4 * N_MAIN * groups + 4 * p + 8 * N_MAIN, 3 * N_MAIN * p, [N_MAIN, p])
+    del aq, ascale
+    torch.cuda.empty_cache()
     return out
 
 

@@ -1,6 +1,7 @@
 """Parallelized model aggregation — the paper's core contribution, on the card.
 
-The port of the f32 single-device rules of ``repro/core/aggregation.py``.
+The port of the f32 and int8 single-device rules of
+``repro/core/aggregation.py``.
 The model is packed into one flat buffer per learner (``core/packing.py``),
 so FedAvg over an arbitrarily deep model is one weighted reduction over an
 ``(N, P)`` stack — elementwise over ``P``, a short loop over ``N``.
@@ -11,7 +12,12 @@ CPU tensor it runs the plain torch einsum.  ``masked_staleness_average``
 computes its staleness-damped weights in torch and reduces through the same
 masked kernel, so no einsum stays on a CUDA path.
 
-Robust rules (median, trimmed mean), the int8/top-k forms and the sharded
+The int8 arena's rules (:func:`masked_fedavg_q8`,
+:func:`masked_staleness_q8`) reduce through ``ops.masked_fedavg_q8``: the
+fused dequant-into-aggregate kernel on the card (``kernels/csrc/fused_agg.cu``),
+the plain dequantize-``where``-einsum on the host.
+
+Robust rules (median, trimmed mean), the top-k forms and the sharded
 variants belong to later slices of the port (``ROADMAP.md``).
 """
 
@@ -30,6 +36,8 @@ __all__ = [
     "masked_weighted_average",
     "masked_fedavg",
     "masked_staleness_average",
+    "masked_fedavg_q8",
+    "masked_staleness_q8",
     "staleness_weights",
 ]
 
@@ -85,3 +93,41 @@ def masked_staleness_average(
     """
     stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
     return ops.masked_fedavg(arena, staleness_weights(num_examples, stal, alpha), mask)
+
+
+def masked_fedavg_q8(
+    q: torch.Tensor,
+    scales: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    group: int = 256,
+) -> torch.Tensor:
+    """Masked FedAvg straight off a quantized arena, in one fused pass.
+
+    ``(N, P)`` int8 × ``(N, P//group)`` f32 × ``(N,)`` × ``(N,)`` -> ``(P,)``:
+    the int8-arena statement of :func:`masked_weighted_average`; the f32
+    ``(N, P)`` stack is never built on the card.  The controller's dispatch
+    for ``arena_dtype="int8"``.
+    """
+    return ops.masked_fedavg_q8(q, scales, weights, mask, group)
+
+
+def masked_staleness_q8(
+    q: torch.Tensor,
+    scales: torch.Tensor,
+    num_examples: torch.Tensor,
+    versions: torch.Tensor,
+    current_version: float,
+    mask: torch.Tensor,
+    alpha: float = 0.5,
+    group: int = 256,
+) -> torch.Tensor:
+    """Staleness-damped masked mean straight off a quantized arena.
+
+    The int8-arena statement of :func:`masked_staleness_average`: the
+    staleness discount on the ``(N,)`` vectors, then the fused
+    dequantize-mask-reduce over the int8 rows.
+    """
+    stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
+    return ops.masked_fedavg_q8(q, scales, staleness_weights(num_examples, stal, alpha),
+                                mask, group)

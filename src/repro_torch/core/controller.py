@@ -1,21 +1,24 @@
 """The Federation Controller — model state, transport and store plumbing.
 
-The port of ``repro/core/controller.py`` for the slice's case: round-based
-(sync) protocols, the f32 arena or the stack store, the raw upload codec and
-FedAvg, on one device.  The round engine (``core/engine.py``) drives
-protocols and calls back into this plumbing:
+The port of ``repro/core/controller.py`` for the ported slices: round-based
+(sync) protocols, the f32 or int8 arena or the stack store, the raw or int8
+upload codec (and the int8 downlink codec) and FedAvg, on one device.  The
+round engine (``core/engine.py``) drives protocols and calls back into this
+plumbing:
 
 * **serialize-once broadcast** — the global model is serialized at most once
   per model version (:meth:`Controller._broadcast`), straight off the flat
   ``global_buffer``;
 * **measured upload ingest** (:meth:`Controller.ingest`) — learners send
   packed rows through the measured uplink; arrival is a decode, the
-  admission screen on the row's L2 norm, and an in-place arena row write;
+  admission screen on the row's L2 norm, and an in-place arena row write.
+  An int8 upload into an int8 arena lands directly, still quantized;
 * **aggregation** (:meth:`Controller.aggregate_round`) — one masked FedAvg
-  over the ``(n_max, P)`` arena, which on the card is the hand-written
-  Hopper kernel; then the server optimizer, a device sync and the commit.
+  over the ``(n_max, P)`` arena, which on the card is a hand-written Hopper
+  kernel (the fused dequant-into-aggregate on an int8 arena); then the
+  server optimizer, a device sync and the commit.
 
-Secure aggregation, the int8/top-k codecs and arenas, the sharded arena,
+Secure aggregation, the top-k codec and arena, the sharded arena,
 robust rules, the continuous protocols and checkpoints are later slices of
 the port: asking for them raises ``NotImplementedError`` at construction.
 """
@@ -68,9 +71,12 @@ class Controller:
     store_mode:
         ``"arena"`` (default) aggregates straight off the device-resident
         :class:`ArenaStore`; ``"stack"`` re-stacks the hash-map store.
+    arena_dtype:
+        ``"f32"`` or ``"int8"`` (the quantized-resident arena: FedAvg only,
+        arena store only, no custom aggregate function).
     flat_uploads / upload_codec:
         Ship the manifest at registration so learners upload packed rows
-        through the measured uplink; ``"raw"`` is the only codec here.
+        through the measured uplink; ``"raw"`` or ``"int8"``.
     admission_control and its knobs, quarantine_threshold / quarantine_decay:
         The upload admission screen (reject non-finite rows, clip norm
         outliers against an EWMA) and quarantine of repeat offenders, on by
@@ -120,12 +126,40 @@ class Controller:
     ):
         if store_mode not in ("arena", "stack"):
             raise ValueError(f"store_mode must be 'arena' or 'stack', got {store_mode!r}")
+        if arena_dtype not in ("f32", "int8"):
+            raise ValueError(f"arena_dtype must be 'f32' or 'int8', got {arena_dtype!r}")
+        if arena_dtype == "int8":
+            # The quantized arena supports exactly the weighted-average family
+            # (fused dequant-into-aggregate); everything that needs f32 rows
+            # refuses instead of widening the resident state back to f32.
+            if store_mode != "arena":
+                raise ValueError(
+                    "arena_dtype='int8' requires store_mode='arena'; the "
+                    "stack store keeps decoded f32 buffers"
+                )
+            if secure:
+                raise ValueError(
+                    "arena_dtype='int8' cannot run under secure "
+                    "aggregation: mask-encoded fixed-point rows are f32-only"
+                )
+            if aggregation_rule != "fedavg":
+                raise ValueError(
+                    f"aggregation_rule={aggregation_rule!r} is f32-only: "
+                    "order statistics sort full-precision rows and have no "
+                    "fused dequantized form.  Use arena_dtype='f32' for "
+                    "robust rules — see the support matrix in docs/ARENA.md"
+                )
+            if aggregate_fn is not None or masked_aggregate_fn is not None:
+                raise ValueError(
+                    "arena_dtype='int8' cannot honour a custom aggregate_fn/"
+                    "masked_aggregate_fn: custom rules expect an f32 arena "
+                    "buffer, not int8 values + scales"
+                )
+        self.arena_dtype = arena_dtype
         if secure:
             raise _later_slice("secure aggregation", "slice E")
         if arena_mesh is not None:
             raise _later_slice("the mesh-sharded arena", "slice G")
-        if arena_dtype != "f32":
-            raise _later_slice(f"arena_dtype={arena_dtype!r}", "slice C")
         if sparse_mode != "densify":
             raise _later_slice(f"sparse_mode={sparse_mode!r}", "slice F")
         if aggregation_rule != "fedavg":
@@ -190,6 +224,10 @@ class Controller:
         self._c_rejoins = self.telemetry.counter("engine.faults.rejoins")
         self._c_rejected_nonfinite = self.telemetry.counter("engine.uploads.rejected.nonfinite")
         self._c_clipped = self.telemetry.counter("engine.uploads.clipped")
+        # Quantized-arena fast paths: uploads landed in int8 form with no f32
+        # row, and fused dequant-into-aggregate reductions.
+        self._c_quant_direct = self.telemetry.counter("engine.uploads.quantized_direct")
+        self._c_fused_agg = self.telemetry.counter("controller.aggregations.fused_q8")
         self._c_quarantined = self.telemetry.counter("engine.quarantine.entered")
         self._g_quarantine = self.telemetry.gauge("engine.quarantine.active")
         self._store_lock = threading.Lock()
@@ -204,7 +242,7 @@ class Controller:
         self._learner_versions: dict[str, int] = {}
         self.flat_uploads = flat_uploads
         self._wire_lock = threading.Lock()
-        self._wire_cache: tuple[int, Broadcast] | None = None
+        self._wire_cache: tuple[tuple[int, int], Broadcast] | None = None
         self._c_dispatch_ser = self.telemetry.counter("controller.dispatch_serializations")
         self._c_fallback = self.telemetry.counter("controller.upload_fallback_packs")
         self._g_version = self.telemetry.gauge("controller.model_version")
@@ -247,6 +285,7 @@ class Controller:
                 n_max=max(self._arena_n_max, len(self._learners)),
                 row_align=self._arena_row_align,
                 telemetry=self.telemetry,
+                arena_dtype=self.arena_dtype,
                 device=self.device,
             )
             # Rows follow registration order, so aggregation order is
@@ -306,11 +345,13 @@ class Controller:
     # -------------------------------------------------------------- dispatch
     def _broadcast(self) -> Broadcast:
         """The current model's shared wire payload, serialized at most once
-        per model version (bytes straight off ``global_buffer``)."""
-        key = self._model_version
+        per (model version, downlink codec): bytes straight off
+        ``global_buffer``, or the codec's encoding of ``global_params``."""
+        key = (self._model_version, id(self.channel.codec))
         with self._wire_lock:
             if self._wire_cache is None or self._wire_cache[0] != key:
-                bc = self.channel.broadcast(buffer=self.global_buffer, manifest=self.manifest)
+                bc = self.channel.broadcast(params=self.global_params,
+                                            buffer=self.global_buffer, manifest=self.manifest)
                 self._c_dispatch_ser.add(1)
                 self._wire_cache = (key, bc)
             return self._wire_cache[1]
@@ -395,8 +436,16 @@ class Controller:
 
         Arena mode decodes the wire row and writes it in place into the
         learner's arena row; stack mode inserts it into the hash-map store.
+        An int8 upload matching an int8 arena's layout lands directly
+        (:meth:`_quant_direct_ok`): the wire's int8 groups and scales are
+        split on the device and copied into the row, with no f32 row and no
+        requantization.  Its norm comes from the quantized form and clipping
+        rescales the scales.  Counted in ``engine.uploads.quantized_direct``.
         Returns the screen's clip info (``None`` when stored untouched).
         """
+        version = self._learner_versions.get(update.learner_id, 0)
+        if self._quant_direct_ok(update):
+            return self._ingest_quantized(update, version)
         pad_to = self.arena.padded_params if self.store_mode == "arena" else None
         clip: dict | None = None
         if self.admission_control:
@@ -404,7 +453,6 @@ class Controller:
             buffer, clip = self._screen_upload(update.learner_id, buffer, norm)
         else:
             buffer = self._upload_buffer(update, pad_to=pad_to)
-        version = self._learner_versions.get(update.learner_id, 0)
         if self.store_mode == "arena":
             self.arena.write(
                 update.learner_id, buffer,
@@ -425,11 +473,52 @@ class Controller:
                         },
                     )
                 )
+        self._observe(update)
+        return clip
+
+    def _ingest_quantized(self, update: LocalUpdate, version: int) -> dict | None:
+        """The int8 arena's direct landing of an int8 upload."""
+        q, scales, norm = self.channel.recv_upload_quantized(
+            update.upload, self.arena.padded_params
+        )
+        clip: dict | None = None
+        if self.admission_control:
+            scale, clip = self._screen_norm(update.learner_id, float(norm))
+            if scale is not None:
+                # Clipping a quantized row == rescaling its scales.
+                scales = scales * torch.tensor(scale, dtype=torch.float32)
+        self.arena.write_quantized(
+            update.learner_id, q, scales,
+            weight=float(update.num_examples), version=float(version),
+        )
+        self._c_quant_direct.add(1)
+        self._observe(update)
+        return clip
+
+    def _observe(self, update: LocalUpdate) -> None:
+        """Feed the learner's profile: step time and upload bytes."""
         prof = self._learner_profiles[update.learner_id]
         prof.observe_step_time(update.seconds_per_step)
         if update.upload is not None:
             prof.observe_upload_bytes(update.upload.payload.nbytes)
-        return clip
+
+    def _quant_direct_ok(self, update: LocalUpdate) -> bool:
+        """True when the upload can land in the int8 arena without dequant.
+
+        Requires an int8 arena and an envelope of the registry ``int8`` codec
+        whose group matches the arena's ``qgroup``, packed at the arena's
+        padded row width (the ``flat_uploads`` fast path).  Anything else
+        falls back to the f32 decode, and :meth:`ArenaStore.write` requantizes.
+        """
+        if self.arena is None or self.arena.arena_dtype != "int8":
+            return False
+        env = update.upload
+        return (
+            env is not None
+            and env.codec == "int8"
+            and int(env.codec_params.get("group", 0)) == self.arena.qgroup
+            and int(env.num_elements) == self.arena.padded_params
+        )
 
     # ------------------------------------------------------------ quarantine
     def offense_score(self, learner_id: str) -> float:
@@ -511,7 +600,15 @@ class Controller:
             if arena.num_valid(list(selected)) == 0:
                 raise RuntimeError("no local models available to aggregate")
             mask = arena.round_mask(list(selected))
-            out = self.masked_aggregate_fn(arena.buffer, arena.weights, mask)
+            if self.arena_dtype == "int8":
+                # Fused dequant-into-aggregate: the reduce reads the int8
+                # groups and scales directly, never building (N, P) f32.
+                out = aggregation.masked_fedavg_q8(
+                    arena.buffer, arena.scales, arena.weights, mask, arena.qgroup
+                )
+                self._c_fused_agg.add(1)
+            else:
+                out = self.masked_aggregate_fn(arena.buffer, arena.weights, mask)
             return out[: arena.num_params]
 
     # -------------------------------------------------------------- lifecycle

@@ -38,6 +38,7 @@ __all__ = [
     "unpack_bytes",
     "pack_row_bytes",
     "unpack_row_bytes",
+    "bitcast",
     "num_params",
     "round_up",
     "tree_from_numpy",
@@ -252,7 +253,7 @@ def pack_row_bytes(buffer: torch.Tensor, dtype: torch.dtype = torch.float32) -> 
     return _host_bytes(buffer.detach().reshape(-1).to("cpu", dtype, copy=True))
 
 
-def _bitcast(seg: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def bitcast(seg: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Reinterpret a ``uint8`` segment as ``dtype`` (copying if misaligned)."""
     if dtype == torch.bool:
         return seg.to(torch.bool)
@@ -273,7 +274,7 @@ def unpack_row_bytes(
             f"{int(num_elements) * dt.itemsize} for {num_elements} "
             f"{dtype} elements"
         )
-    return _bitcast(host_tensor(wire, torch.device(device)), dt)
+    return bitcast(host_tensor(wire, torch.device(device)), dt)
 
 
 def unpack_bytes(
@@ -288,7 +289,7 @@ def unpack_bytes(
     cursor = 0
     for spec in manifest.specs:
         seg = dev[cursor : cursor + spec.nbytes]
-        leaves.append(_bitcast(seg, torch_dtype(spec.dtype)).reshape(spec.shape))
+        leaves.append(bitcast(seg, torch_dtype(spec.dtype)).reshape(spec.shape))
         cursor += spec.nbytes
     return tree_util.unflatten(manifest.structure, leaves)
 

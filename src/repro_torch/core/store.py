@@ -1,6 +1,6 @@
 """In-memory model stores for the federation controller.
 
-The port of ``repro/core/store.py`` (f32 arena, one device):
+The port of ``repro/core/store.py`` (f32 and int8 arenas, one device):
 
 * :class:`ModelStore` — the hash-map store with per-learner lineage,
   capacity-bounded eviction and byte accounting; aggregation re-stacks its
@@ -9,12 +9,15 @@ The port of ``repro/core/store.py`` (f32 arena, one device):
 * :class:`ArenaStore` — the device-resident aggregation arena: one persistent
   ``(n_max, P)`` tensor plus ``weights``/``versions``/``mask`` vectors; every
   learner owns a row, uploads are in-place row writes, and aggregation is a
-  single masked reduction straight over the arena.
+  single masked reduction straight over the arena.  With
+  ``arena_dtype="int8"`` rows are resident as int8 groups plus ``(n, P/group)``
+  f32 scales (~3.9x fewer bytes), written already quantized
+  (:meth:`ArenaStore.write_quantized`) or quantized on write.
 
 The reference's donated JAX row write becomes an in-place
 ``buffer[row, :n].copy_(buf)``: PyTorch tensors are mutable, so the arena is
-updated in place with no ``(n_max, P)`` re-allocation.  The quantized and
-sparse arenas and the mesh-sharded arena are later slices of the port.
+updated in place with no ``(n_max, P)`` re-allocation.  The sparse arena and
+the mesh-sharded arena are later slices of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 from repro_torch.core.metrics import Telemetry
 from repro_torch.core.packing import round_up
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels import quantize as quant
 
 __all__ = ["ModelRecord", "ModelStore", "ArenaStore"]
 
@@ -181,7 +186,9 @@ class ArenaStore:
 
     Rows are padded to ``row_align`` elements (1024, as in the reference, so
     the upload wire size matches); the padding columns are zero and never
-    escape.  More learners than rows grow the arena geometrically.  Host
+    escape.  ``arena_dtype="int8"`` keeps ``buffer`` as int8 and adds
+    ``scales (n_max, padded_params/qgroup)`` f32 (``qgroup`` defaults to
+    256).  More learners than rows grow the arena geometrically.  Host
     mirrors (``_valid``, ``_weights_host``, ``_versions_host``) answer
     cohort questions without a device read.
 
@@ -199,16 +206,17 @@ class ArenaStore:
         axes: Any = None,
         telemetry: Telemetry | None = None,
         arena_dtype: str = "f32",
+        qgroup: int | None = None,
         device: str | torch.device | None = None,
     ):
         if num_params < 1:
             raise ValueError("num_params must be >= 1")
-        if arena_dtype in ("int8", "topk"):
+        if arena_dtype == "topk":
             raise NotImplementedError(
-                f"arena_dtype={arena_dtype!r} is not ported yet: the int8 arena "
-                "is slice C and the top-k arena slice F of the port (ROADMAP.md)"
+                "arena_dtype='topk' is not ported yet: the top-k arena is slice F "
+                "of the port (ROADMAP.md)"
             )
-        if arena_dtype != "f32":
+        if arena_dtype not in ("f32", "int8"):
             raise ValueError(
                 f"arena_dtype must be 'f32', 'int8' or 'topk', got {arena_dtype!r}"
             )
@@ -222,12 +230,31 @@ class ArenaStore:
         self.arena_dtype = arena_dtype
         self.lock = threading.RLock()
         self.padded_params = round_up(self.num_params, row_align)
+        if arena_dtype == "int8":
+            self.qgroup = int(qgroup or quant.DEFAULT_GROUP)
+            if self.padded_params % self.qgroup:
+                raise ValueError(
+                    f"int8 arena needs the row width {self.padded_params} "
+                    f"divisible by the quant group {self.qgroup}; raise row_align "
+                    "or shrink the group"
+                )
+            self.buffer_dtype = torch.int8
+        else:
+            self.qgroup = int(qgroup) if qgroup else None
+            self.buffer_dtype = dtype
         n = max(1, int(n_max))
         self._rows: dict[str, int] = {}
         self._valid = np.zeros((n,), bool)
         self._weights_host = np.zeros((n,), np.float32)
         self._versions_host = np.zeros((n,), np.float32)
-        self.buffer = torch.zeros((n, self.padded_params), dtype=dtype, device=self.device)
+        self.buffer = torch.zeros((n, self.padded_params), dtype=self.buffer_dtype,
+                                  device=self.device)
+        # Per-row per-group f32 dequantization scales of the int8 arena.
+        self.scales = (
+            torch.zeros((n, self.padded_params // self.qgroup), dtype=torch.float32,
+                        device=self.device)
+            if arena_dtype == "int8" else None
+        )
         self.weights = torch.zeros((n,), dtype=torch.float32, device=self.device)
         self.versions = torch.zeros((n,), dtype=torch.float32, device=self.device)
         self.mask = torch.zeros((n,), dtype=torch.float32, device=self.device)
@@ -267,6 +294,8 @@ class ArenaStore:
 
     def _grow(self, n_new: int) -> None:
         self.buffer = self._grown(self.buffer, n_new)
+        if self.scales is not None:
+            self.scales = self._grown(self.scales, n_new)
         self.weights = self._grown(self.weights, n_new)
         self.versions = self._grown(self.versions, n_new)
         self.mask = self._grown(self.mask, n_new)
@@ -303,13 +332,25 @@ class ArenaStore:
         """Insert/overwrite a learner's packed update in its arena row.
 
         An in-place ``copy_`` of O(P) device bytes, no allocation, no host
-        copy.  Returns the row.
+        copy.  On an int8 arena the row is quantized first (the kernel on the
+        card) and lands through :meth:`write_quantized`; the padding columns
+        quantize to ``q = 0``, scale 1.0.  Returns the row.
         """
         buf = torch.as_tensor(buffer).reshape(-1).to(self.device, self.dtype)
         if buf.shape[0] not in (self.num_params, self.padded_params):
             raise ValueError(
                 f"buffer has {buf.shape[0]} params, arena rows hold "
                 f"{self.num_params} (or {self.padded_params} pre-padded)"
+            )
+        if self.arena_dtype == "int8":
+            buf = torch.nn.functional.pad(buf, (0, self.padded_params - buf.shape[0]))
+            q, s = ops.quantize(
+                buf, group=self.qgroup,
+                block_rows=quant.effective_block_rows(self.padded_params, self.qgroup),
+            )
+            return self.write_quantized(
+                learner_id, q[: self.padded_params],
+                s[: self.padded_params // self.qgroup], weight, version,
             )
         with self.lock:
             row = self._assign_row(learner_id)
@@ -323,6 +364,46 @@ class ArenaStore:
             self._c_writes.add(1)
             # Cumulative decoded-row ingest bytes (reconciles against uplink).
             self._c_bytes.add(int(buf.nbytes))
+            return row
+
+    def write_quantized(
+        self, learner_id: str, q: torch.Tensor, scales: torch.Tensor,
+        weight: float, version: float = 0.0,
+    ) -> int:
+        """Land an already-quantized row (int8 values + f32 group scales).
+
+        The int8 arena's ingest hot path: an int8 upload decoded by
+        ``Channel.recv_upload_quantized`` is copied in place into the row and
+        its scales, with no f32 ``(P,)`` row in between; same metadata
+        bookkeeping as :meth:`write`.  Only on an ``arena_dtype="int8"`` arena.
+        """
+        if self.arena_dtype != "int8":
+            raise ValueError(
+                "write_quantized requires ArenaStore(arena_dtype='int8'); "
+                f"this arena is {self.arena_dtype!r}"
+            )
+        q = torch.as_tensor(q).reshape(-1)
+        if q.dtype != torch.int8:
+            raise ValueError(f"quantized row must be int8, got {q.dtype}")
+        n_groups = self.padded_params // self.qgroup
+        if q.shape[0] != self.padded_params or tuple(scales.shape) != (n_groups,):
+            raise ValueError(
+                f"quantized row holds {q.shape[0]} values / {tuple(scales.shape)} "
+                f"scales; this arena wants ({self.padded_params},) / ({n_groups},)"
+            )
+        scales = scales.to(self.device, torch.float32)
+        with self.lock:
+            row = self._assign_row(learner_id)
+            self.buffer[row].copy_(q)
+            self.scales[row].copy_(scales)
+            self.weights[row] = float(weight)
+            self.versions[row] = float(version)
+            self.mask[row] = 1.0
+            self._valid[row] = True
+            self._weights_host[row] = weight
+            self._versions_host[row] = version
+            self._c_writes.add(1)
+            self._c_bytes.add(int(q.nbytes) + int(scales.nbytes))
             return row
 
     def invalidate(self, learner_id: str) -> None:
@@ -340,11 +421,19 @@ class ArenaStore:
         return self._rows.get(learner_id)
 
     def row_view(self, learner_id: str) -> torch.Tensor:
-        """Device view of one learner's un-padded packed buffer."""
+        """Device view of one learner's un-padded packed buffer (always f32).
+
+        On an int8 arena the row is dequantized on the fly; the resident
+        state stays int8.
+        """
         with self.lock:
             row = self._rows[learner_id]
             if not self._valid[row]:
                 raise KeyError(f"{learner_id} has no valid model in the arena")
+            if self.arena_dtype == "int8":
+                x = (self.buffer[row].to(torch.float32).reshape(-1, self.qgroup)
+                     * self.scales[row][:, None]).reshape(-1)
+                return x[: self.num_params]
             return self.buffer[row, : self.num_params]
 
     def round_mask(self, learner_ids: Sequence[str] | None = None) -> torch.Tensor:
@@ -391,7 +480,14 @@ class ArenaStore:
             return int(self._valid.sum())
 
     def resident_bytes(self) -> int:
-        """Device bytes held by the arena (buffer + metadata vectors)."""
+        """Device bytes held by the arena (buffer + scales + metadata vectors).
+
+        Published as the ``store.arena.bytes_resident`` gauge after every
+        capacity change: the int8 arena's ``(1 + 4/group)`` bytes per param
+        against 4 for f32.
+        """
+        scales = self.scales.nbytes if self.scales is not None else 0
         return int(
-            self.buffer.nbytes + self.weights.nbytes + self.versions.nbytes + self.mask.nbytes
+            self.buffer.nbytes + scales + self.weights.nbytes + self.versions.nbytes
+            + self.mask.nbytes
         )

@@ -1,23 +1,26 @@
 """Simulated transport layer with measured (de)serialization and byte counts.
 
-The port of the raw half of ``repro/core/transport.py``.  The transport is an
-in-process channel that does the *real* serialization work, counts bytes and
-accounts virtual wire time from a bandwidth/latency model, without sleeping.
-It is full duplex:
+The port of the raw and int8 halves of ``repro/core/transport.py``.  The
+transport is an in-process channel that does the *real* serialization work,
+counts bytes and accounts virtual wire time from a bandwidth/latency model,
+without sleeping.  It is full duplex:
 
 * :meth:`Channel.broadcast` — the downlink fan-out: serialize **once** into a
   shared read-only byte buffer (straight off the controller's flat
-  ``global_buffer``), then stamp per-recipient envelopes with
-  :meth:`Broadcast.to`, each charging that recipient's bytes and wire time;
+  ``global_buffer``, or through the int8 ``QuantCodec`` when the channel has
+  one), then stamp per-recipient envelopes with :meth:`Broadcast.to`, each
+  charging that recipient's bytes and wire time;
 * :meth:`Channel.upload` / :meth:`Channel.recv_upload` — the uplink: a
-  learner's flat ``(P,)`` row is encoded by the ``raw`` codec (f32 bytes) into
-  an :class:`UploadEnvelope`; the controller decodes it with one host-to-device
-  transfer into a row ready for the arena.
+  learner's flat ``(P,)`` row is encoded by the ``raw`` codec (f32 bytes) or
+  the ``int8`` codec (blockwise int8 values + f32 group scales, ~3.9x fewer
+  bytes) into an :class:`UploadEnvelope`; the controller decodes it with one
+  host-to-device transfer into a row ready for the arena, or, for the int8
+  arena, straight into quantized form (:meth:`Channel.recv_upload_quantized`).
 
 The wire stays host bytes (numpy) exactly as in the reference, so uplink and
-downlink byte counts equal the reference's for the same run.  The ``int8`` and
-``topk`` codecs are later slices of the port.  All stats mutation is
-lock-guarded: learners upload concurrently from executor threads.
+downlink byte counts equal the reference's for the same run.  The ``topk``
+codec is a later slice of the port.  All stats mutation is lock-guarded:
+learners upload concurrently from executor threads.
 """
 
 from __future__ import annotations
@@ -34,10 +37,13 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.metrics import Telemetry
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels import quantize as quant
 
 __all__ = [
     "ChannelStats", "Channel", "Envelope", "Broadcast",
-    "UploadEnvelope", "RawUploadCodec", "UPLOAD_CODECS", "get_upload_codec",
+    "UploadEnvelope", "RawUploadCodec", "Int8UploadCodec", "UPLOAD_CODECS",
+    "get_upload_codec",
 ]
 
 
@@ -50,7 +56,7 @@ _STAT_FIELDS = (
 )
 
 #: Codecs of the reference that later slices of the port bring.
-_LATER_CODECS = {"int8": "slice C", "topk": "slice F"}
+_LATER_CODECS = {"topk": "slice F"}
 
 
 class ChannelStats:
@@ -140,7 +146,143 @@ class RawUploadCodec:
         return row, torch.linalg.vector_norm(row)
 
 
-UPLOAD_CODECS = {"raw": RawUploadCodec}
+def _split_quant_wire(
+    wire: torch.Tensor, n_q: int, n_scales: int, n_groups: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device-side split of one int8 upload payload into ``(q int8, scales f32)``.
+
+    The wire carries only the ``n_scales = ceil(n/group)`` informative scales
+    (``kernels/quantize.wire_layout``); the remaining ``n_groups - n_scales``
+    trailing groups are re-synthesized here as exactly 1.0, the quantize
+    kernel's zero-amax scale, so the round trip matches an untrimmed wire.
+    """
+    q = wire[:n_q].view(torch.int8)
+    scales = packing.bitcast(wire[n_q: n_q + 4 * n_scales], torch.float32)
+    if n_groups > n_scales:
+        pad = torch.ones((n_groups - n_scales,), dtype=torch.float32, device=wire.device)
+        scales = torch.cat([scales, pad])
+    return q, scales
+
+
+def _int8_decode_norm(
+    wire: torch.Tensor, n_q: int, n_scales: int, num_elements: int, group: int,
+    block_rows: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split + re-pad + dequantize (the kernel on the card) + the row's L2 norm."""
+    q, scales = _split_quant_wire(wire, n_q, n_scales, n_q // group)
+    row = ops.dequantize(q, scales, num_elements, group=group, block_rows=block_rows)
+    return row, torch.linalg.vector_norm(row)
+
+
+def _decode_quant_resident(
+    wire: torch.Tensor, n_q: int, n_scales: int, out_params: int, group: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Land one int8 upload in quantized form: ``(q int8, scales f32, norm)``.
+
+    Split the wire, re-pad the trimmed scales and slice to the arena row
+    width; no f32 ``(P,)`` row is built.  The admission norm comes from the
+    quantized form, ``sqrt(Σ_g scale_g² · Σ_i q_{g,i}²)``, which equals the L2
+    norm of the dequantized row up to f32 summation order.
+    """
+    q, scales = _split_quant_wire(wire, n_q, n_scales, n_q // group)
+    q = q[:out_params]
+    scales = scales[: out_params // group]
+    qf = q.to(torch.float32).reshape(out_params // group, group)
+    norm = torch.sqrt(torch.sum(scales * scales * torch.sum(qf * qf, dim=1)))
+    return q, scales, norm
+
+
+class Int8UploadCodec:
+    """Blockwise-int8 upload codec (``kernels/quantize``): ~3.9x fewer bytes.
+
+    Encode quantizes the learner's flat ``(P,)`` buffer (the hand-written
+    kernel on the card; symmetric per-group scales) and concatenates the
+    ``int8`` values and the informative ``f32`` scales into one wire payload,
+    byte-identical to the reference's.  The block height adapts to the buffer
+    (``kernels/quantize.effective_block_rows``), so padding stays within
+    ~6.25% of the rows.  Decode is one host-to-device transfer of the
+    payload, a device-side split and the dequantize kernel.  Lossy to the
+    int8 step; use ``raw`` where bit-identity matters.
+    """
+
+    codec_id = "int8"
+
+    def __init__(self, group: int | None = None, block_rows: int | None = None):
+        self.group = int(group or quant.DEFAULT_GROUP)
+        self.block_rows = int(block_rows or quant.DEFAULT_BLOCK_ROWS)
+
+    def wire_params(self) -> dict:
+        """Codec parameters the receiver needs to derive the wire layout."""
+        return {"group": self.group, "block_rows": self.block_rows}
+
+    def wire_nbytes(self, num_elements: int) -> int:
+        """Modeled wire payload size: int8 values + f32 scales."""
+        return quant.wire_layout(int(num_elements), self.group, self.block_rows)[2]
+
+    def _block_rows(self, num_elements: int) -> int:
+        return quant.effective_block_rows(int(num_elements), self.group, self.block_rows)
+
+    def encode(self, buffer: torch.Tensor) -> np.ndarray:
+        """Quantize a flat ``(P,)`` buffer into int8 values + f32 scales.
+
+        Only the ``ceil(P/group)`` informative scales go on the wire; trailing
+        pure-padding groups (``q == 0``, scale 1.0) are re-synthesized by the
+        decoder from ``P`` alone.  One device-to-host transfer.
+        """
+        flat = torch.as_tensor(buffer).reshape(-1).to(torch.float32)
+        n = int(flat.shape[0])
+        q, scales = ops.quantize(flat, group=self.group, block_rows=self._block_rows(n))
+        n_scales = quant.wire_layout(n, self.group, self.block_rows)[1]
+        wire = torch.cat([q.view(torch.uint8), scales[:n_scales].view(torch.uint8)])
+        return wire.cpu().numpy()
+
+    def _checked_layout(self, payload: np.ndarray, num_elements: int) -> tuple[int, int]:
+        """Validate payload size against the wire layout; return (n_q, n_scales)."""
+        n_q, n_scales, nbytes = quant.wire_layout(num_elements, self.group, self.block_rows)
+        if int(payload.size) != nbytes:
+            raise ValueError(
+                f"int8 payload holds {int(payload.size)} bytes, expected "
+                f"{nbytes} for {num_elements} elements"
+            )
+        return n_q, n_scales
+
+    def decode(self, payload: np.ndarray, num_elements: int,
+               device: torch.device) -> torch.Tensor:
+        """Dequantize an int8 payload back to the f32 ``(P,)`` row on ``device``."""
+        return self.decode_with_norm(payload, num_elements, device)[0]
+
+    def decode_with_norm(
+        self, payload: np.ndarray, num_elements: int, device: torch.device
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Decode plus the row's L2 norm as an unread device scalar."""
+        n_q, n_scales = self._checked_layout(payload, num_elements)
+        wire = packing.host_tensor(payload, device)
+        return _int8_decode_norm(wire, n_q, n_scales, int(num_elements), self.group,
+                                 self._block_rows(num_elements))
+
+    def decode_quantized(
+        self, payload: np.ndarray, num_elements: int, out_params: int,
+        device: torch.device,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Decode an int8 payload straight into arena-resident quantized form.
+
+        Returns ``(q int8 (out_params,), scales f32 (out_params//group,),
+        norm)`` with no intermediate f32 ``(P,)`` row.  ``out_params`` (the
+        arena's padded row width) must be a multiple of ``group`` and at most
+        the payload's padded element count.
+        """
+        n_q, n_scales = self._checked_layout(payload, num_elements)
+        out_params = int(out_params)
+        if out_params % self.group or out_params > n_q:
+            raise ValueError(
+                f"out_params={out_params} must be a multiple of group={self.group} "
+                f"and <= the payload's {n_q} padded elements"
+            )
+        wire = packing.host_tensor(payload, device)
+        return _decode_quant_resident(wire, n_q, n_scales, out_params, self.group)
+
+
+UPLOAD_CODECS = {"raw": RawUploadCodec, "int8": Int8UploadCodec}
 
 
 def _codec_params(codec: Any) -> dict:
@@ -152,8 +294,8 @@ def _codec_params(codec: Any) -> dict:
 def get_upload_codec(spec: Any) -> Any:
     """Resolve an upload codec: a registry id, a codec object, or ``None`` (raw).
 
-    ``"int8"`` and ``"topk"`` are the reference's other codecs; they raise
-    ``NotImplementedError`` until their slice of the port lands.
+    ``"topk"`` is the reference's other codec; it raises
+    ``NotImplementedError`` until its slice of the port lands.
     """
     if spec is None:
         return RawUploadCodec()
@@ -263,10 +405,13 @@ class Channel:
     """A measured full-duplex channel (controller <-> learner).
 
     ``bandwidth_gbps``/``latency_ms`` feed the virtual wire-time account and
-    never block.  ``upload_codec`` selects the uplink wire format (``"raw"``).
-    ``device`` is where received tensors land (downlink models and decoded
-    upload rows).  All wire accounting lives as ``channel.*`` counters in
-    ``telemetry``; ``stats`` is the :class:`ChannelStats` read view.
+    never block.  ``quantize_codec`` optionally compresses the downlink tree
+    (``kernels/ops.QuantCodec``); it is kept as :attr:`codec`.
+    ``upload_codec`` selects the uplink wire format (``"raw"``, ``"int8"`` or
+    a codec object).  ``device`` is where received tensors land (downlink
+    models and decoded upload rows).  All wire accounting lives as
+    ``channel.*`` counters in ``telemetry``; ``stats`` is the
+    :class:`ChannelStats` read view.
     """
 
     def __init__(
@@ -278,14 +423,11 @@ class Channel:
         telemetry: Telemetry | None = None,
         device: str | torch.device | None = None,
     ):
-        if quantize_codec is not None:
-            raise NotImplementedError(
-                "the int8 downlink codec is slice C of the port (ROADMAP.md)"
-            )
         self.device = resolve_device(device)
         self.bandwidth_gbps = bandwidth_gbps
         self.latency_ms = latency_ms
         self.learner_bandwidth_gbps: dict[str, float] = {}
+        self.codec = quantize_codec
         self.upload_codec = get_upload_codec(upload_codec)
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self._c = {f: self.telemetry.counter(f"channel.{f}") for f in _STAT_FIELDS}
@@ -322,6 +464,16 @@ class Channel:
             self._c["serialize_s"].add(dt)
 
     # -- send halves --------------------------------------------------------
+    def send(self, params: Any, metadata: dict | None = None) -> Envelope:
+        """Serialize a tree for one recipient (the per-send half)."""
+        t0 = time.perf_counter()
+        if self.codec is not None:
+            params = self.codec.encode(params)
+        buf, manifest = packing.pack_bytes(params)
+        self._account_serialize(time.perf_counter() - t0)
+        self._account_send(int(buf.nbytes))
+        return Envelope(buffer=buf, manifest=manifest, metadata=dict(metadata or {}))
+
     def broadcast(
         self,
         params: Any = None,
@@ -333,22 +485,27 @@ class Channel:
         """Serialize **once** for a fan-out; recipients pay only wire time.
 
         With ``buffer=``/``manifest=`` (the controller's flat ``global_buffer``
-        and its cached manifest) the wire bytes come straight off the flat
-        buffer; otherwise ``pack_bytes(params)``.
+        and its cached manifest) and no codec, the wire bytes come straight off
+        the flat buffer; otherwise ``pack_bytes`` of ``params``, encoded by the
+        codec when there is one.
         """
         t0 = time.perf_counter()
-        if buffer is not None and manifest is not None:
+        if buffer is not None and manifest is not None and self.codec is None:
             wire, m = packing.pack_bytes_from_numeric(buffer, manifest), manifest
         else:
-            wire, m = packing.pack_bytes(params)
+            src = params if self.codec is None else self.codec.encode(params)
+            wire, m = packing.pack_bytes(src)
         self._account_serialize(time.perf_counter() - t0)
         return Broadcast(self, wire, m, dict(metadata or {}))
 
     # -- receive ------------------------------------------------------------
     def recv(self, envelope: Envelope) -> Any:
-        """Deserialize at the receiver half (one transfer onto ``device``)."""
+        """Deserialize at the receiver half (one transfer onto ``device``),
+        decoding through the codec when there is one."""
         t0 = time.perf_counter()
         params = packing.unpack_bytes(envelope.buffer, envelope.manifest, self.device)
+        if self.codec is not None:
+            params = self.codec.decode(params)
         with self._stats_lock:
             self._c["deserialize_s"].add(time.perf_counter() - t0)
         return params
@@ -421,3 +578,28 @@ class Channel:
         with self._stats_lock:
             self._c["upload_deserialize_s"].add(time.perf_counter() - t0)
         return (row, norm) if with_norm else row
+
+    def recv_upload_quantized(
+        self, envelope: UploadEnvelope, out_params: int
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Decode an int8 upload straight into arena-resident quantized form.
+
+        Returns ``(q int8 (out_params,), scales f32 (out_params//group,),
+        norm)``: one host-to-device transfer and a device-side split, with no
+        f32 ``(P,)`` row and the admission norm as a device scalar.  Only for
+        envelopes whose codec lands quantized rows; accounted as upload
+        deserialization work like :meth:`recv_upload`.
+        """
+        c = self._resolve_upload_codec(envelope)
+        decode_q = getattr(c, "decode_quantized", None)
+        if decode_q is None:
+            raise ValueError(
+                f"codec {envelope.codec!r} cannot land quantized rows; "
+                "use recv_upload for f32 decode"
+            )
+        t0 = time.perf_counter()
+        q, scales, norm = decode_q(envelope.payload, envelope.num_elements, out_params,
+                                   self.device)
+        with self._stats_lock:
+            self._c["upload_deserialize_s"].add(time.perf_counter() - t0)
+        return q, scales, norm

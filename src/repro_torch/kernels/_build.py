@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (nvcc into a ctypes library).
 
 The kernels in ``kernels/csrc/`` have a plain C interface, so they are
-compiled by ``nvcc`` straight into a shared library and bound with
+compiled by ``nvcc`` straight into one shared library and bound with
 ``ctypes`` — a build of seconds, where one that includes PyTorch's headers
-takes minutes.  The build runs at first use, on the machine with the card,
-into ``build/repro_torch_kernels/`` at the repository root, keyed on a hash
-of the sources and flags: a changed source builds anew, an unchanged one is
-loaded from the last build.  Nothing here runs at import time.
+takes minutes.  Each source compiles in its own ``nvcc`` process, all started
+together, and one more links the objects.  The build runs at first use, on
+the machine with the card, into ``build/repro_torch_kernels/`` at the
+repository root, keyed on a hash of the sources and flags: a changed source
+builds anew, an unchanged one is loaded from the last build.  Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -21,23 +23,37 @@ import tempfile
 import threading
 import time
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "load_library"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "load_library", "count_launch"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "fedavg.cu",)
+SOURCES = (_CSRC / "fedavg.cu", _CSRC / "quantize.cu", _CSRC / "fused_agg.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
 _loaded: dict[str, "BuiltLibrary"] = {}
+_count_lock = threading.Lock()
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: argtypes of every C entry point (pointers and the stream are ``c_void_p``).
+_SIGNATURES = {
+    # arena, dtype code, row stride, w_hat, mask or NULL, out, N, P, stream
+    "repro_fedavg": [_P, _I, _L, _P, _P, _P, _I, _L, _P],
+    # x, q, scales, n_groups, group, stream
+    "repro_quantize": [_P, _P, _P, _L, _I, _P],
+    # q, scales, out, n, group, stream
+    "repro_dequantize": [_P, _P, _P, _L, _I, _P],
+    # q, q row stride, scales, scales row stride, w_hat, mask, out, N, P, group, stream
+    "repro_fedavg_q8": [_P, _L, _P, _L, _P, _P, _P, _I, _L, _I, _P],
+}
 
 
 class BuiltLibrary:
     """A loaded kernel library plus how it was built.
 
-    ``seconds`` is the nvcc wall time of this process's build (0.0 when an
+    ``seconds`` is the wall time of this process's build (0.0 when an
     earlier build with the same key was reused); ``log`` is nvcc's output,
     including ``-Xptxas -v``'s registers and shared memory per kernel.
     """
@@ -74,19 +90,39 @@ def _key() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.repro_fedavg
-    fn.argtypes = [
-        ctypes.c_void_p,  # arena
-        ctypes.c_int,  # dtype code
-        ctypes.c_longlong,  # row stride (elements)
-        ctypes.c_void_p,  # normalized weights (N,) f32
-        ctypes.c_void_p,  # mask (N,) f32 or NULL
-        ctypes.c_void_p,  # out (P,) f32
-        ctypes.c_int,  # N
-        ctypes.c_longlong,  # P
-        ctypes.c_void_p,  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> str:
+    """One nvcc per source, all at once, then one link; returns nvcc's output.
+
+    The library is linked under a temporary name and renamed, so a
+    concurrent process never loads a half-written library.
+    """
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        lib_tmp = pathlib.Path(tmp) / so.name
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                "-o", str(lib_tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{logs[-1]}")
+        os.replace(lib_tmp, so)
+    return "".join(logs)
 
 
 def load_library() -> BuiltLibrary:
@@ -103,20 +139,20 @@ def load_library() -> BuiltLibrary:
         so = out_dir / f"librepro_kernels_{key}.so"
         seconds, log = 0.0, ""
         if not so.exists():
-            # Build into a temporary name and rename: a concurrent process
-            # never loads a half-written library.
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = _compile(out_dir, so)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _bind(lib)
         built = _loaded[key] = BuiltLibrary(lib, so, seconds, log)
         return built
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a plain integer) after a launch.
+
+    Learner threads launch concurrently (each upload's quantize), so the
+    read-modify-write is locked: a lost update would undercount the path.
+    """
+    with _count_lock:
+        wrapper.launches += 1

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import count_launch, load_library
 __all__ = [
     "normalize",
     "masked_normalize",
@@ -84,8 +85,6 @@ def fedavg_torch(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 def _launch(rows: torch.Tensor, w_hat: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     """Check the inputs, launch ``repro_fedavg`` on the current stream."""
-    from repro_torch.kernels._build import load_library
-
     if rows.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {rows.device}")
     if rows.ndim != 2:
@@ -130,14 +129,14 @@ def masked_fedavg_cuda(
     dev = arena.device
     m = torch.as_tensor(mask).to(dev, torch.float32)
     out = _launch(arena, masked_normalize(torch.as_tensor(weights).to(dev), m), m)
-    masked_fedavg_cuda.launches += 1
+    count_launch(masked_fedavg_cuda)
     return out
 
 
 def fedavg_cuda(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Unmasked FedAvg on the card through the same kernel (no mask)."""
     out = _launch(stack, normalize(torch.as_tensor(weights).to(stack.device)), None)
-    fedavg_cuda.launches += 1
+    count_launch(fedavg_cuda)
     return out
 
 

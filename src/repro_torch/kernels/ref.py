@@ -1,8 +1,9 @@
 """Oracles for the port's kernels: torch f32 references and f64 numpy ones.
 
-The port of ``repro/kernels/ref.py`` for the slice's kernels.  The f32
+The port of ``repro/kernels/ref.py`` for the ported kernels.  The f32
 references are the kernels' plain versions in :mod:`repro_torch.kernels.fedavg`
-under the reference's names, so there is one plain version to keep in step.
+and :mod:`repro_torch.kernels.quantize`/``fused_agg`` under the reference's
+names, so there is one plain version to keep in step.
 The f64 versions are independent host numpy, genuine f64 whatever the device.
 
 One deliberate difference: :func:`fedavg_ref` normalizes like the
@@ -18,8 +19,14 @@ import torch
 
 from repro_torch.kernels.fedavg import fedavg_torch as fedavg_ref
 from repro_torch.kernels.fedavg import masked_fedavg_torch as masked_fedavg_ref
+from repro_torch.kernels.fused_agg import masked_fedavg_q8_torch as masked_fedavg_q8_ref
+from repro_torch.kernels.quantize import dequantize_torch as dequantize_ref
+from repro_torch.kernels.quantize import quantize_torch as quantize_ref
 
-__all__ = ["fedavg_ref", "masked_fedavg_ref", "fedavg_f64", "masked_fedavg_f64"]
+__all__ = [
+    "fedavg_ref", "masked_fedavg_ref", "masked_fedavg_q8_ref", "quantize_ref",
+    "dequantize_ref", "fedavg_f64", "masked_fedavg_f64", "masked_fedavg_q8_f64",
+]
 
 
 def _f64(x) -> np.ndarray:
@@ -44,3 +51,12 @@ def masked_fedavg_f64(arena, weights, mask) -> np.ndarray:
     w = w / total if total > 0 else m / max(float(m.sum()), 1.0)
     rows = np.where(m[:, None] > 0, rows, 0.0)
     return w @ rows
+
+
+def masked_fedavg_q8_f64(q, scales, weights, mask, group: int = 256) -> np.ndarray:
+    """Host f64 oracle of the fused dequant-into-aggregate: dequantize each row
+    exactly, then :func:`masked_fedavg_f64`."""
+    qh, sh = _f64(q), _f64(scales)
+    n, p = qh.shape
+    rows = (qh.reshape(n, p // group, group) * sh[:, :, None]).reshape(n, p)
+    return masked_fedavg_f64(rows, weights, mask)

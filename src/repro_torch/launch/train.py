@@ -8,8 +8,10 @@ FedAvg rounds on the card:
         --local-steps 4 --batch-size 100
 
 ``--arch housing-mlp --size 10m`` is the paper's stress-test model (100
-hidden layers of width 320, 10,174,081 parameters).  ``--device cpu`` runs
-on the host.  Other architectures are slice H of the port.
+hidden layers of width 320, 10,174,081 parameters).  ``--quantize`` ships
+the downlink through the int8 codec (``kernels/ops.QuantCodec``).
+``--device cpu`` runs on the host.  Other architectures are slice H of the
+port.
 """
 
 from __future__ import annotations
@@ -82,6 +84,8 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 transport codec (hand-written Hopper kernels)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -110,6 +114,11 @@ def main(argv: list[str] | None = None):
         device=device,
     )
     driver = Driver(env)
+    if args.quantize:
+        from repro_torch.kernels.ops import QuantCodec
+
+        driver.controller.channel.codec = QuantCodec()
+
     t0 = time.time()
     driver.initialize(initial, learners)
     history = driver.run()

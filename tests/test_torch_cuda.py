@@ -1,4 +1,4 @@
-"""The port on the card: the hand-written kernel and one sync round.
+"""The port on the card: the hand-written kernels and sync rounds through them.
 
 Needs a CUDA card; every test skips without one (decided inside the
 ``cuda_device`` fixture, never at import).  This file imports neither JAX nor
@@ -7,7 +7,9 @@ the reference, so it runs where only the port is installed:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Kernel bars: atol = rtol = 1e-5 for f32 rows, 3e-2 for bf16 rows, against
-the plain torch version on the same card and the f64 host oracle.
+the plain torch version on the same card and the f64 host oracle; quantize
+and dequantize bit-identical to their plain versions; the fused
+dequant-into-aggregate at atol = rtol = 2e-5.
 """
 
 import numpy as np
@@ -17,7 +19,9 @@ import torch
 from repro_torch.configs import housing_mlp
 from repro_torch.core import Driver, FederationEnv, TerminationCriteria
 from repro_torch.kernels import fedavg as tfed
+from repro_torch.kernels import fused_agg as tfused
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import train
 from repro_torch.models import mlp
@@ -72,4 +76,74 @@ def test_sync_rounds_launch_the_kernel(cuda_device):
     history = driver.run()
     assert tfed.masked_fedavg_cuda.launches - before == rounds
     assert driver.controller.arena.buffer.device.type == "cuda"
+    assert all(np.isfinite(h.metrics["eval_loss"]) for h in history)
+
+
+def _special(size, group, seed):
+    """Normal data plus groups of NaN, ±inf, zeros and subnormals."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=size) * 5).astype(np.float32)
+    x[:group] = 0.0
+    x[group: 2 * group] = (rng.normal(size=group) * 1e-39).astype(np.float32)
+    x[2 * group + 3] = np.nan
+    x[3 * group + 5] = np.inf
+    x[4 * group + 7] = -np.inf
+    x[5 * group: 6 * group] = (rng.normal(size=group) * 1e-37).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("group", [256, 512])
+@pytest.mark.parametrize("size", [16_384, 100_000])
+def test_quantize_kernels_match_plain(cuda_device, size, group):
+    x = torch.from_numpy(_special(size, group, seed=size)).to(cuda_device)
+    before = (tquant.quantize_cuda.launches, tquant.dequantize_cuda.launches)
+    q, s = tops.quantize(x, group=group)
+    padded = torch.nn.functional.pad(x, (0, q.shape[0] - size))
+    pq, ps = tquant.quantize_torch(padded, group)
+    assert torch.equal(q, pq)
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32))
+    back = tops.dequantize(q, s, size, group=group)
+    want = tquant.dequantize_torch(q, s, group)[:size]
+    assert torch.equal(back.view(torch.int32), want.view(torch.int32))
+    assert (tquant.quantize_cuda.launches, tquant.dequantize_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("n,p,group", [(7, 4096, 256), (33, 2304, 256), (4, 4096, 512)])
+def test_fused_q8_kernel_matches_plain(cuda_device, n, p, group):
+    rng = np.random.default_rng(n + p)
+    q = torch.from_numpy(rng.integers(-127, 128, size=(n, p), dtype=np.int8)).to(cuda_device)
+    s = torch.from_numpy(rng.uniform(0.01, 5, size=(n, p // group)).astype(np.float32))
+    s = s.to(cuda_device)
+    w = torch.from_numpy(rng.uniform(1, 50, size=n).astype(np.float32)).to(cuda_device)
+    m = torch.ones((n,), device=cuda_device)
+    m[1::3] = 0.0
+    s[m == 0] = float("nan")  # a dead row's garbage must not leak
+    before = tfused.masked_fedavg_q8_cuda.launches
+    got = tops.masked_fedavg_q8(q, s, w, m, group=group)
+    assert tfused.masked_fedavg_q8_cuda.launches == before + 1
+    assert torch.isfinite(got).all()
+    want = tfused.masked_fedavg_q8_torch(q, s, w, m, group)
+    _close(got.cpu(), want.cpu(), 2e-5)
+    empty = tops.masked_fedavg_q8(q, s, w, torch.zeros_like(m), group=group)
+    assert torch.count_nonzero(empty) == 0
+
+
+def test_int8_arena_rounds_launch_the_fused_kernel(cuda_device):
+    rounds, n_learners = 2, 3
+    _, learners = train.build_housing_learners("100k", n_learners, 0, device=cuda_device)
+    init = mlp.init_params(torch.Generator().manual_seed(0), housing_mlp.reduced(), cuda_device)
+    driver = Driver(FederationEnv(protocol="sync", local_steps=2, batch_size=16,
+                                  upload_codec="int8", arena_dtype="int8",
+                                  termination=TerminationCriteria(max_rounds=rounds),
+                                  device=cuda_device))
+    driver.initialize(init, learners)
+    before = (tfused.masked_fedavg_q8_cuda.launches, tquant.quantize_cuda.launches)
+    history = driver.run()
+    assert tfused.masked_fedavg_q8_cuda.launches - before[0] == rounds
+    assert tquant.quantize_cuda.launches - before[1] == rounds * n_learners
+    arena = driver.controller.arena
+    assert arena.buffer.device.type == "cuda" and arena.buffer.dtype == torch.int8
+    assert driver.controller.telemetry.value("engine.uploads.quantized_direct") == (
+        rounds * n_learners)
     assert all(np.isfinite(h.metrics["eval_loss"]) for h in history)

@@ -14,7 +14,10 @@ import sys
 import pytest
 import torch
 
+from repro_torch.core.store import ArenaStore
+from repro_torch.core.transport import Channel
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import QuantCodec
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -67,3 +70,19 @@ def test_default_device_is_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+    # The int8 entry points: the card by default, the host only when asked.
+    for make in (lambda **kw: ArenaStore(num_params=300, arena_dtype="int8", **kw),
+                 lambda **kw: Channel(upload_codec="int8", **kw),
+                 lambda **kw: Channel(quantize_codec=QuantCodec(), **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(device="cuda")
+    arena = ArenaStore(num_params=300, arena_dtype="int8", device="cpu")
+    assert arena.buffer.device.type == arena.scales.device.type == "cpu"
+    up = Channel(upload_codec="int8", device="cpu")
+    row = up.recv_upload(up.upload(torch.ones(300)))
+    assert row.device.type == "cpu" and row.shape == (300,)
+    down = Channel(quantize_codec=QuantCodec(), device="cpu")
+    got = down.recv(down.broadcast({"w": torch.ones(300)}).to())
+    assert got["w"].device.type == "cpu"
