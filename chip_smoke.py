@@ -14,21 +14,37 @@ nothing of the JAX package.  Phases, each printing its own lines:
              bit-identical (groups 256 and 512, with NaN, ±inf, all-zero and
              subnormal groups); the fused dequant-into-aggregate
              (atol=rtol=2e-5; NaN and 1e30 dead-row scales, zero weights,
-             the empty mask); timings at the main path's shapes;
+             the empty mask); the masked trimmed mean (atol 1e-5, plus
+             rtol 1e-5 at full width; N from 3 to 1000 with several
+             ``trim_k`` each, NaN and 1e30 dead rows, duplicated rows,
+             all-equal columns, a degenerate cohort, the empty mask, the
+             ``ValueError`` of an impossible trim); timings at the main
+             path's shapes;
 4. check   — small federations on the card agree with the same federations
              on the host: f32 (global buffer, rtol 1e-4 / atol 1e-5: the two
              devices sum in different orders across local steps), then the
              int8 uplink on the int8 arena and the ``--quantize`` downlink
              (every coordinate within one quantization step of its group
              plus 1e-5, fewer than 0.1% beyond rtol 1e-4 / atol 1e-5: an
-             int8 code may flip by one where the sums differ);
-5. main    — housing-mlp-10m, 32 learners, 3 sync rounds, four legs:
+             int8 code may flip by one where the sums differ); then a
+             byzantine federation (16 learners, fault seed 7, ``scale`` and
+             ``sign_flip`` adversaries, one dispatch worker so arrival order
+             is fixed) under ``trimmed_mean`` and ``median`` (global buffer
+             rtol 1e-4 / atol 1e-5; the adversarial, clipped, rejected and
+             quarantine counters equal);
+5. main    — housing-mlp-10m, 32 learners, 3 sync rounds (2 in the stack and
+             int8_wire legs, to stay inside about 400 s), six legs:
              ``launch/train.main`` (f32 arena, raw codec); the stack store
              through ``Driver``/``FederationEnv`` with a lineage of two models
              per learner; ``int8_arena`` (int8 uplink into the int8-resident
              arena, fused reduce); ``int8_wire`` (int8 uplink decoded onto the
-             f32 arena).  Each leg's launch counts are zeroed just before it
-             and read just after.
+             f32 arena); ``trimmed_mean`` (a ``Controller`` on a
+             ``FaultyChannel`` with 8 byzantine learners, ``trim_k=8``, built
+             as the reference's adversarial arm builds it; the rank-select
+             kernel once per round); ``median`` (``FederationEnv(
+             aggregation_rule="median")`` through ``Driver``, faultless; no
+             hand kernel, ``torch.sort``).  Each leg's launch counts are
+             zeroed just before it and read just after.
 
 A disagreement found in the kernels or check phases is printed and recorded,
 and the script goes on, so one call shows every fault; any recorded or
@@ -51,15 +67,27 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+# FP32 instructions issued per second on the CUDA cores (the 67 TFLOP/s
+# figure counts an FMA as two operations); only for the rank-select diagnostic.
+F32_ISSUE_PER_S = F32_FLOPS / 2
 P_MAIN = 10_174_464  # housing-mlp-10m row, padded to the arena's 1024 alignment
 P_STACK = 10_174_081  # housing-mlp-10m params: the stack leg's unpadded rows
 N_MAIN = 32
 GROUP = 256
 ROUNDS = 3
+# The stack and int8_wire legs run 2 rounds, so the six legs stay inside
+# about 400 s of command time; every leg keeps its full width.
+SHORT_LEGS = ("stack", "int8_wire")
+SHORT_ROUNDS = 2
 LOCAL_STEPS = 4
 BATCH = 100
 LR = 0.05
 INT8_ROW_BYTES = 10_333_440  # wire_layout(P_MAIN): 10,174,464 int8 + 39,744 f32 scales
+TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
+BYZANTINE = dict(seed=7, adversarial_fraction=0.15, adversarial_fates=("scale", "sign_flip"))
+BYZ_COUNTERS = ("engine.faults.adversarial.scale", "engine.faults.adversarial.sign_flip",
+                "engine.uploads.clipped", "engine.uploads.rejected.nonfinite",
+                "engine.quarantine.entered")
 FAILURES: list[str] = []  # disagreements found by the kernels and check phases
 
 
@@ -84,12 +112,14 @@ def main() -> None:
     from repro_torch.kernels import fedavg as kfed
     from repro_torch.kernels import fused_agg as kfu
     from repro_torch.kernels import quantize as kq
+    from repro_torch.kernels import robust as krob
 
     full_f32()
     dev = torch.device("cuda")
     counters = {"masked_fedavg": kfed.masked_fedavg_cuda, "fedavg": kfed.fedavg_cuda,
                 "quantize": kq.quantize_cuda, "dequantize": kq.dequantize_cuda,
-                "masked_fedavg_q8": kfu.masked_fedavg_q8_cuda}
+                "masked_fedavg_q8": kfu.masked_fedavg_q8_cuda,
+                "masked_trimmed_mean": krob.masked_trimmed_mean_cuda}
 
     # -- 1. env ---------------------------------------------------------------
     smi = subprocess.run(
@@ -117,6 +147,8 @@ def main() -> None:
     errs.update(check_quantize(kq, dev))
     errs["masked_fedavg_q8"] = check_fused(kfu, dev)
     timing.update(time_int8_kernels(kq, kfu, dev, errs))
+    errs["masked_trimmed_mean"] = check_trimmed_mean(krob, dev)
+    timing.update(time_trimmed_mean(krob, dev, errs))
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t_phase}),
           flush=True)
 
@@ -145,6 +177,22 @@ def main() -> None:
     checks["quantize_downlink"] = within_q8_bar(d_gpu.controller.global_buffer.cpu(),
                                                 d_cpu.controller.global_buffer,
                                                 "check quantize downlink")
+    small_byz = dict(size="100k", learners=16, rounds=3, local_steps=2, lr=0.01,
+                     trim_k=6, workers=1)
+    for rule in ("trimmed_mean", "median"):
+        c_gpu, _ = run_byzantine(train, dev, rule=rule, **small_byz)
+        c_cpu, _ = run_byzantine(train, torch.device("cpu"), rule=rule, **small_byz)
+        checks[f"byzantine_{rule}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer,
+                                             1e-4, atol=1e-5, what=f"check byzantine {rule}")
+        on_card = {k: c_gpu.telemetry.value(k) for k in BYZ_COUNTERS}
+        on_host = {k: c_cpu.telemetry.value(k) for k in BYZ_COUNTERS}
+        _expect(on_card == on_host,
+                f"check byzantine {rule}: counters {on_card} on the card, {on_host} on the host")
+        _expect(on_card["engine.faults.adversarial.scale"] > 0
+                and on_card["engine.faults.adversarial.sign_flip"] > 0,
+                f"check byzantine {rule}: no adversarial upload in {on_card}")
+        print(json.dumps({"phase": "check", "byzantine": rule, "counters": on_card}),
+              flush=True)
     print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     del d_gpu, d_cpu
@@ -156,29 +204,39 @@ def main() -> None:
             "--device", "cuda"]
     main_fed = dict(size="10m", learners=N_MAIN, rounds=ROUNDS, local_steps=LOCAL_STEPS,
                     lr=LR)
+    short_fed = {**main_fed, "rounds": SHORT_ROUNDS}
     legs = {
-        "arena": lambda: train.main(full),
-        "stack": lambda: run_federation(train, dev, lineage_length=2, **main_fed),
-        "int8_arena": lambda: run_federation(train, dev, upload_codec="int8",
-                                             arena_dtype="int8", **main_fed),
-        "int8_wire": lambda: run_federation(train, dev, upload_codec="int8", **main_fed),
+        "arena": lambda: _controller(train.main(full)),
+        "stack": lambda: _controller(run_federation(train, dev, lineage_length=2, **short_fed)),
+        "int8_arena": lambda: _controller(run_federation(train, dev, upload_codec="int8",
+                                                         arena_dtype="int8", **main_fed)),
+        "int8_wire": lambda: _controller(run_federation(train, dev, upload_codec="int8",
+                                                        **short_fed)),
+        "trimmed_mean": lambda: run_byzantine(train, dev, rule="trimmed_mean", trim_k=TRIM_K,
+                                              **main_fed),
+        "median": lambda: _controller(run_federation(train, dev, aggregation_rule="median",
+                                                     **main_fed)),
     }
     expected = {
         "arena": {"masked_fedavg": ROUNDS},
-        "stack": {"fedavg": ROUNDS},
+        "stack": {"fedavg": SHORT_ROUNDS},
         "int8_arena": {"quantize": N_MAIN * ROUNDS, "masked_fedavg_q8": ROUNDS},
-        "int8_wire": {"quantize": N_MAIN * ROUNDS, "dequantize": N_MAIN * ROUNDS,
-                      "masked_fedavg": ROUNDS},
+        "int8_wire": {"quantize": N_MAIN * SHORT_ROUNDS, "dequantize": N_MAIN * SHORT_ROUNDS,
+                      "masked_fedavg": SHORT_ROUNDS},
+        "trimmed_mean": {"masked_trimmed_mean": ROUNDS},
+        "median": {},
     }
     launches = dict.fromkeys(counters, 0)
     resident = {}
+    eval_loss = {}
     for leg, run in legs.items():
         for fn in counters.values():
             fn.launches = 0
         t_phase = time.perf_counter()
-        driver, history = run()
+        c, history = run()
+        rounds = SHORT_ROUNDS if leg in SHORT_LEGS else ROUNDS
         counts = {name: fn.launches for name, fn in counters.items()}
-        c = driver.controller
+        eval_loss[leg] = [h_.metrics["eval_loss"] for h_ in history]
         for h_ in history:
             print(json.dumps({"phase": f"main.{leg}", "round": h_.round_id,
                               "aggregation_s": h_.aggregation_s,
@@ -187,13 +245,13 @@ def main() -> None:
                               "eval_round_s": h_.eval_round_s,
                               "eval_loss": h_.metrics["eval_loss"]}), flush=True)
             assert math.isfinite(h_.metrics["eval_loss"]), h_.metrics
-        assert len(history) == ROUNDS, len(history)
+        assert len(history) == rounds, len(history)
         assert counts == {**dict.fromkeys(counters, 0), **expected[leg]}, (leg, counts)
         up = c.channel.stats.upload_bytes
         tel = c.telemetry
         if leg == "stack":
             assert c.arena is None and c.store_mode == "stack"
-            assert up == N_MAIN * ROUNDS * 4 * P_STACK, up
+            assert up == N_MAIN * rounds * 4 * P_STACK, up
         else:
             arena = c.arena
             resident[leg] = tel.value("store.arena.bytes_resident")
@@ -203,10 +261,20 @@ def main() -> None:
             assert c.arena.buffer.dtype == torch.float32
             assert up == N_MAIN * ROUNDS * 4 * P_MAIN, up
         if leg.startswith("int8"):
-            assert up == N_MAIN * ROUNDS * INT8_ROW_BYTES, up
-            direct = N_MAIN * ROUNDS if leg == "int8_arena" else 0
+            assert up == N_MAIN * rounds * INT8_ROW_BYTES, up
+            direct = N_MAIN * rounds if leg == "int8_arena" else 0
             assert tel.value("engine.uploads.quantized_direct") == direct
-            assert tel.value("controller.aggregations.fused_q8") == (ROUNDS if direct else 0)
+            assert tel.value("controller.aggregations.fused_q8") == (rounds if direct else 0)
+        if leg == "trimmed_mean":
+            byz = {k: tel.value(k) for k in BYZ_COUNTERS}
+            assert c.aggregation_rule == "trimmed_mean" and c.trim_k == TRIM_K
+            assert byz["engine.faults.adversarial.scale"] > 0, byz
+            assert byz["engine.faults.adversarial.sign_flip"] > 0, byz
+            # Arrival order decides which uploads precede the screen's warm-up.
+            assert 0 < byz["engine.uploads.clipped"] <= byz["engine.faults.adversarial.scale"], byz
+            print(json.dumps({"phase": "main.trimmed_mean", "counters": byz}), flush=True)
+        if leg == "median":
+            assert c.aggregation_rule == "median"
         if leg == "int8_arena":
             assert c.arena.buffer.dtype == torch.int8
             assert c.arena.scales.dtype == torch.float32
@@ -237,8 +305,10 @@ def main() -> None:
                           "fused_q8": tel.value("controller.aggregations.fused_q8"),
                           "global_buffer": list(c.global_buffer.shape),
                           "seconds": time.perf_counter() - t_phase}), flush=True)
-        del driver, history, c
+        del history, c
         torch.cuda.empty_cache()
+    print(json.dumps({"phase": "main", "eval_loss_by_round": {
+        leg: eval_loss[leg] for leg in ("arena", "trimmed_mean", "median")}}), flush=True)
 
     if FAILURES:
         sys.exit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
@@ -249,6 +319,7 @@ def main() -> None:
         ("quantize", "quantize.cu", "src/repro/kernels/quantize.py:105"),
         ("dequantize", "quantize.cu", "src/repro/kernels/quantize.py:143"),
         ("masked_fedavg_q8", "fused_agg.cu", "src/repro/kernels/fused_agg.py:150"),
+        ("masked_trimmed_mean", "robust.cu", "src/repro/kernels/robust.py:80"),
     ):
         assert launches[name] > 0, (name, launches)
         rows.append({
@@ -264,12 +335,47 @@ def main() -> None:
           flush=True)
 
 
+def _controller(run: tuple) -> tuple:
+    """``(driver, history)`` -> ``(controller, history)``."""
+    driver, history = run
+    return driver.controller, history
+
+
+def run_byzantine(train, dev, size, learners, rounds, local_steps, lr, rule, trim_k,
+                  workers=32):
+    """A ``Controller`` on a ``FaultyChannel`` with byzantine learners, built as
+    the reference's adversarial arm builds it (``benchmarks/bench_round.py``),
+    with the launcher's learners (same model, data and seed as ``train.main``).
+    Returns ``(controller, history)``; the controller is shut down."""
+    from repro_torch import optim
+    from repro_torch.core import (Controller, FaultInjector, FaultSpec, FaultyChannel,
+                                  SyncProtocol)
+    from repro_torch.models import mlp as mlp_model
+
+    cfg, fleet = train.build_housing_learners(size, learners, seed=0,
+                                              optimizer=optim.sgd(lr), device=dev)
+    initial = mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev)
+    ctrl = Controller(protocol=SyncProtocol(local_steps, BATCH, lr),
+                      channel=FaultyChannel(FaultInjector(FaultSpec(**BYZANTINE)), device=dev),
+                      aggregation_rule=rule, trim_k=trim_k, arena_n_max=learners,
+                      max_dispatch_workers=workers, device=dev)
+    ctrl.set_initial_model(initial)
+    for learner in fleet:
+        ctrl.register_learner(learner)
+    try:
+        history = ctrl.engine.run(rounds=rounds)
+    finally:
+        ctrl.shutdown()
+    return ctrl, history
+
+
 def run_federation(train, dev, size, learners, rounds, local_steps, lr, **env):
     """One federation as users reach it: ``Driver``/``FederationEnv`` with the
     launcher's learners (same model, data and seed as ``launch/train.main``).
 
     ``lineage_length=2`` makes the Driver pick the stack store;
-    ``upload_codec``/``arena_dtype`` select the int8 legs.
+    ``upload_codec``/``arena_dtype`` select the int8 legs,
+    ``aggregation_rule`` the robust rules.
     """
     from repro_torch import optim
     from repro_torch.core import Driver, FederationEnv, TerminationCriteria
@@ -561,6 +667,120 @@ def time_int8_kernels(kq, kfu, dev, errs: dict) -> dict:
     del aq, ascale
     torch.cuda.empty_cache()
     return out
+
+
+def _trimmed_rows(n: int, p: int, gen: torch.Generator, dev, dead: bool) -> tuple:
+    """Normal rows with a duplicated and a negated row, a block of all-equal
+    columns and, when ``dead``, every third row dead holding NaN or 1e30."""
+    rows = torch.randn((n, p), generator=gen, device=dev) * 3
+    if n >= 4:
+        rows[n // 2] = rows[0]
+        rows[n // 2 + 1] = -rows[1]
+    rows[:, : p // 8] = 0.5
+    m = torch.ones((n,), device=dev)
+    if dead:
+        m[2::3] = 0.0
+        rows[2::3] = float("nan")
+        rows[5::6] = 1e30
+    return rows, m
+
+
+def check_trimmed_mean(krob, dev) -> float:
+    """The masked trimmed mean against its plain version: N from 3 to 1000
+    with several ``trim_k`` each (``2·trim_k = N − 1`` included), every mask
+    all-valid and with dead garbage rows; atol 1e-5, plus rtol 1e-5 at full
+    width.  (1000, 10,174,464) is left out: that arena alone is 40 GB and the
+    plain sort needs three times as much.  Returns the worst f32 error."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    grid = {3: (0, 1), 8: (1, 3), 16: (1, 4, 7), 32: (1, 8, 15), 64: (1, 16, 31),
+            1000: (1, 150, 499)}
+    worst = 0.0
+    for n, trims in grid.items():
+        for p in (1024, 5000, P_MAIN):
+            if n == 1000 and p == P_MAIN:
+                continue
+            rtol = 1e-5 if p == P_MAIN else 0.0
+            for dead in (False, True):
+                rows, m = _trimmed_rows(n, p, gen, dev, dead)
+                for trim_k in trims:
+                    err = _close(krob.masked_trimmed_mean_cuda(rows, m, trim_k),
+                                 krob.masked_trimmed_mean_torch(rows, m, trim_k), rtol,
+                                 atol=1e-5, what=f"masked_trimmed_mean {n}x{p} trim_k={trim_k} "
+                                                 f"dead={dead}")
+                    worst = max(worst, err)
+                torch.cuda.synchronize()
+                print(json.dumps({"phase": "kernels", "masked_trimmed_mean": [n, p],
+                                  "trim_k": list(trims), "dead_rows": dead,
+                                  "max_abs_err": worst, "atol": 1e-5, "rtol": rtol}), flush=True)
+                del rows
+    for n, p in ((8, 5000), (32, P_MAIN)):  # bf16 rows, widened exactly to f32
+        rows, m = _trimmed_rows(n, p, gen, dev, dead=True)
+        rows = rows.to(torch.bfloat16)
+        for trim_k in (1, n // 4):
+            err = _close(krob.masked_trimmed_mean_cuda(rows, m, trim_k),
+                         krob.masked_trimmed_mean_torch(rows, m, trim_k), 1e-5, atol=1e-5,
+                         what=f"masked_trimmed_mean bf16 {n}x{p} trim_k={trim_k}")
+            print(json.dumps({"phase": "kernels", "masked_trimmed_mean": [n, p],
+                              "dtype": "bfloat16", "trim_k": trim_k, "max_abs_err": err}),
+                  flush=True)
+        del rows
+    rows, _ = _trimmed_rows(8, 5000, gen, dev, dead=False)
+    two = torch.zeros((8,), device=dev)
+    two[[0, 5]] = 1.0  # degenerate cohort: falls back to the untrimmed mean
+    _close(krob.masked_trimmed_mean_cuda(rows, two, 2), (rows[0] + rows[5]) / 2, 0.0,
+           atol=1e-5, what="masked_trimmed_mean degenerate cohort")
+    got = krob.masked_trimmed_mean_cuda(rows, torch.zeros((8,), device=dev), 2)
+    _expect(int(torch.count_nonzero(got)) == 0,
+            "masked_trimmed_mean: the empty mask must give 0")
+    try:
+        krob.masked_trimmed_mean_cuda(rows, two, 4)
+        _expect(False, "masked_trimmed_mean: 2*trim_k >= N must raise ValueError")
+    except ValueError:
+        pass
+    print(json.dumps({"phase": "kernels", "masked_trimmed_mean": "degenerate",
+                      "fallback_mean": True, "empty_mask_zeros": True,
+                      "trim_k_value_error": True}), flush=True)
+    return worst
+
+
+def _sorting_network_size(n: int) -> int:
+    """Compare-exchanges of Batcher's odd-even merge sort on ``n`` inputs,
+    ``n`` rounded up to 2^t: (t² − t + 4)·2^(t−2) − 1 (191 for 32)."""
+    t = max(n - 1, 0).bit_length()
+    return ((t * t - t + 4) << t) // 4 - 1
+
+
+def time_trimmed_mean(krob, dev, errs: dict) -> dict:
+    """The rank-select kernel on the main path's (32, 10,174,464) f32 arena at
+    ``trim_k`` 8 (the main leg's, the row's numbers) and 1.  Its bound is the
+    larger of the bytes (the arena read once, the output written once) and
+    the least operations the function needs, not this kernel's design: per
+    column a sorting network's compare-exchanges (a min and a max each) and
+    the band's adds, over 67 TFLOP/s.  The rank-select's own 2·N² compare
+    and add instructions per column, at the FP32 issue rate, print apart as
+    a diagnostic.  No single PyTorch call computes a masked trimmed mean, so
+    ``library_ms`` is null."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randn((N_MAIN, P_MAIN), generator=gen, device=dev) * 3
+    m = torch.ones((N_MAIN,), device=dev)
+    out = {}
+    for trim_k in (TRIM_K, 1):
+        kern = lambda tk=trim_k: krob.masked_trimmed_mean_cuda(rows, m, tk)  # noqa: E731
+        plain = lambda tk=trim_k: krob.masked_trimmed_mean_torch(rows, m, tk)  # noqa: E731
+        errs["masked_trimmed_mean"] = max(
+            errs["masked_trimmed_mean"],
+            _close(kern(), plain(), 1e-5, atol=1e-5, what=f"trimmed mean timed trim_k={trim_k}"))
+        out[trim_k] = _timed(f"masked_trimmed_mean trim_k={trim_k}", kern, plain, None,
+                             N_MAIN * P_MAIN * 4 + 4 * P_MAIN + 4 * N_MAIN,
+                             (2 * _sorting_network_size(N_MAIN) + N_MAIN) * P_MAIN,
+                             [N_MAIN, P_MAIN])
+    rank_select = 2 * N_MAIN * N_MAIN * P_MAIN
+    print(json.dumps({"phase": "kernels", "masked_trimmed_mean": "rank_select_diagnostic",
+                      "instructions": rank_select,
+                      "ms_at_fp32_issue_rate": rank_select / F32_ISSUE_PER_S * 1e3}), flush=True)
+    del rows
+    torch.cuda.empty_cache()
+    return {"masked_trimmed_mean": out[TRIM_K]}
 
 
 if __name__ == "__main__":

@@ -23,12 +23,16 @@ from repro_torch.core.packing import (
     unpack_numeric,
 )
 from repro_torch.core.aggregation import (
+    coordinate_median,
     fedavg,
+    masked_coordinate_median,
     masked_fedavg,
     masked_normalize,
     masked_staleness_average,
+    masked_trimmed_mean,
     masked_weighted_average,
     staleness_weights,
+    trimmed_mean,
     weighted_average,
 )
 from repro_torch.core.config import FederationConfig
@@ -58,6 +62,12 @@ from repro_torch.core.engine import (
     UploadRejectedError,
 )
 from repro_torch.core.controller import Controller
+from repro_torch.core.faults import (
+    ADVERSARIAL_FATES,
+    FaultInjector,
+    FaultSpec,
+    FaultyChannel,
+)
 from repro_torch.core.driver import Driver, FederationEnv, TerminationCriteria
 from repro_torch.core.transport import (
     Broadcast,
@@ -76,6 +86,8 @@ __all__ = [
     "fedavg", "weighted_average", "masked_normalize",
     "masked_fedavg", "masked_staleness_average", "masked_weighted_average",
     "staleness_weights",
+    "coordinate_median", "trimmed_mean", "masked_coordinate_median",
+    "masked_trimmed_mean",
     "ModelRecord", "ModelStore", "ArenaStore",
     "SyncProtocol", "TrainTask", "ProtocolPolicy", "LearnerProfile",
     "SelectionPolicy", "select_learners",
@@ -87,6 +99,7 @@ __all__ = [
     "Telemetry", "Counter", "Gauge", "Histogram",
     "EventJournal", "RoundSummary",
     "Driver", "FederationEnv", "TerminationCriteria", "FederationConfig",
+    "FaultSpec", "FaultInjector", "FaultyChannel", "ADVERSARIAL_FATES",
     "Broadcast", "Channel", "ChannelStats", "Envelope",
     "UploadEnvelope", "RawUploadCodec", "get_upload_codec",
 ]

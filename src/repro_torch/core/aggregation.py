@@ -17,8 +17,16 @@ The int8 arena's rules (:func:`masked_fedavg_q8`,
 fused dequant-into-aggregate kernel on the card (``kernels/csrc/fused_agg.cu``),
 the plain dequantize-``where``-einsum on the host.
 
-Robust rules (median, trimmed mean), the top-k forms and the sharded
-variants belong to later slices of the port (``ROADMAP.md``).
+The robust rules are order statistics, weight-blind by design.
+:func:`masked_trimmed_mean` reduces through ``ops.masked_trimmed_mean``: the
+hand-written rank-select kernel on the card (``kernels/csrc/robust.cu``), the
+plain sort-then-trim on the host.  The median rules and the stack store's
+:func:`trimmed_mean` are ``jnp.sort``/``jnp.median`` in the reference, outside
+any Pallas kernel, so they stay ``torch.sort`` here (never ``torch.median``,
+which returns the lower middle value where ``jnp.median`` averages the two).
+
+The top-k forms and the sharded variants belong to later slices of the port
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ __all__ = [
     "masked_fedavg_q8",
     "masked_staleness_q8",
     "staleness_weights",
+    "coordinate_median",
+    "trimmed_mean",
+    "masked_coordinate_median",
+    "masked_trimmed_mean",
 ]
 
 
@@ -131,3 +143,82 @@ def masked_staleness_q8(
     stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
     return ops.masked_fedavg_q8(q, scales, staleness_weights(num_examples, stal, alpha),
                                 mask, group)
+
+
+def _robust_out_dtype(stack: torch.Tensor) -> torch.dtype:
+    """The dtype a robust rule returns: the input's, if it is a float.
+
+    Order statistics are computed in float32, but the result is cast back so
+    a bf16 arena aggregates to a bf16 model instead of widening every round.
+    Integer stacks come back float32: their mean is not representable.
+    """
+    dt = stack.dtype
+    return dt if dt.is_floating_point else torch.float32
+
+
+def coordinate_median(stack: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median — a byzantine-robust aggregation rule.
+
+    ``jnp.median``'s semantics: the mean of the two middle values for an even
+    count, and NaN in every column that holds a NaN.
+    """
+    x = stack.to(torch.float32)
+    n = x.shape[0]
+    s = torch.sort(x, dim=0).values
+    med = (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    med = torch.where(torch.isnan(x).any(dim=0), torch.nan, med)
+    return med.to(_robust_out_dtype(stack))
+
+
+def trimmed_mean(stack: torch.Tensor, trim_k: int) -> torch.Tensor:
+    """Coordinate-wise trimmed mean dropping the ``trim_k`` extremes per side."""
+    n = stack.shape[0]
+    if 2 * trim_k >= n:
+        raise ValueError(f"trim_k={trim_k} too large for N={n}")
+    s = torch.sort(stack.to(torch.float32), dim=0).values
+    out = s[trim_k: n - trim_k].mean(dim=0)
+    return out.to(_robust_out_dtype(stack))
+
+
+def masked_coordinate_median(
+    arena: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """``(N, P) × (N,) × (N,) -> (P,)`` coordinate median over valid rows.
+
+    Invalid rows are pushed to ``+inf`` by a select and one column-wise sort
+    floats every valid value to the top ``n_valid`` positions, so the median
+    is a gather of the two middle ranks — no re-stack, no host round trip, and
+    garbage (even NaN) in a dead row never reaches the reduce.  ``weights`` is
+    accepted for signature parity with :func:`masked_weighted_average` and
+    ignored: order statistics are weight-blind.
+    """
+    del weights  # order statistics are weight-blind by design
+    m = torch.as_tensor(mask).to(arena.device, torch.float32)
+    rows = torch.where(m[:, None] > 0, arena.to(torch.float32), torch.inf)
+    s = torch.sort(rows, dim=0).values
+    # The middle ranks stay device tensors: no host readback of n_valid.
+    n_valid = m.sum().to(torch.int64).reshape(1)
+    lo = torch.clamp((n_valid - 1) // 2, min=0)
+    hi = torch.clamp(n_valid // 2, min=0)
+    med = (s.index_select(0, lo)[0] + s.index_select(0, hi)[0]) * 0.5
+    out = torch.where(n_valid > 0, med, 0.0)
+    return out.to(_robust_out_dtype(arena))
+
+
+def masked_trimmed_mean(
+    arena: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor, trim_k: int
+) -> torch.Tensor:
+    """``(N, P) × (N,) × (N,) -> (P,)`` trimmed mean over valid rows.
+
+    The surviving band is ranks ``[trim_k, n_valid - trim_k)`` of each
+    column's valid values.  An impossible trim against the arena capacity is a
+    ``ValueError``; a cohort that is merely *currently* too small
+    (``n_valid <= 2·trim_k``) falls back to the masked mean of the valid rows.
+    Reduced by ``ops.masked_trimmed_mean`` (the Hopper kernel on the card);
+    ``weights`` is ignored (see :func:`masked_coordinate_median`).
+    """
+    n = arena.shape[0]
+    if 2 * trim_k >= n:
+        raise ValueError(f"trim_k={trim_k} too large for N={n}")
+    out = ops.masked_trimmed_mean(arena, weights, mask, trim_k)
+    return out.to(_robust_out_dtype(arena))

@@ -15,12 +15,15 @@ plumbing:
   An int8 upload into an int8 arena lands directly, still quantized;
 * **aggregation** (:meth:`Controller.aggregate_round`) — one masked FedAvg
   over the ``(n_max, P)`` arena, which on the card is a hand-written Hopper
-  kernel (the fused dequant-into-aggregate on an int8 arena); then the
-  server optimizer, a device sync and the commit.
+  kernel (the fused dequant-into-aggregate on an int8 arena); or, under
+  ``aggregation_rule="trimmed_mean"`` / ``"median"``, the robust order
+  statistic (the trimmed mean through the hand-written rank-select kernel,
+  the median through ``torch.sort``); then the server optimizer, a device
+  sync and the commit.
 
-Secure aggregation, the top-k codec and arena, the sharded arena,
-robust rules, the continuous protocols and checkpoints are later slices of
-the port: asking for them raises ``NotImplementedError`` at construction.
+Secure aggregation, the top-k codec and arena, the sharded arena, the
+continuous protocols and checkpoints are later slices of the port: asking
+for them raises ``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -68,6 +71,11 @@ class Controller:
     aggregate_fn / masked_aggregate_fn:
         ``(stack, weights) -> (P,)`` and ``(arena, weights, mask) -> (P,)``;
         default to FedAvg through ``kernels/ops`` (the Hopper kernel on CUDA).
+    aggregation_rule / trim_k:
+        ``"fedavg"``, ``"median"`` or ``"trimmed_mean"`` (dropping ``trim_k``
+        extremes per side and coordinate); the robust rules replace a custom
+        aggregate function and refuse secure aggregation and
+        staleness-weighted or buffer-scoped protocols, as in the reference.
     store_mode:
         ``"arena"`` (default) aggregates straight off the device-resident
         :class:`ArenaStore`; ``"stack"`` re-stacks the hash-map store.
@@ -116,6 +124,7 @@ class Controller:
         checkpoint_every: int | None = None,
         checkpoint_dir: str | None = None,
         aggregation_rule: str = "fedavg",
+        trim_k: int = 1,
         admission_control: bool = True,
         admission_clip_factor: float = 4.0,
         admission_ewma_decay: float = 0.9,
@@ -162,8 +171,6 @@ class Controller:
             raise _later_slice("the mesh-sharded arena", "slice G")
         if sparse_mode != "densify":
             raise _later_slice(f"sparse_mode={sparse_mode!r}", "slice F")
-        if aggregation_rule != "fedavg":
-            raise _later_slice(f"aggregation_rule={aggregation_rule!r}", "slice D")
         if checkpoint_every is not None or checkpoint_dir is not None:
             raise _later_slice("checkpoint/resume", "slice B")
         if store is not None and store_mode == "arena":
@@ -176,12 +183,60 @@ class Controller:
             raise _later_slice(f"the {type(self.protocol).__name__} policy", "slice B")
         self.device = resolve_device(device)
         self.selection = selection or SelectionPolicy()
-        self.aggregate_fn = aggregate_fn or aggregation.fedavg
-        if masked_aggregate_fn is not None:
+        if aggregation_rule not in ("fedavg", "median", "trimmed_mean"):
+            raise ValueError(
+                "aggregation_rule must be 'fedavg', 'median' or "
+                f"'trimmed_mean', got {aggregation_rule!r}"
+            )
+        if not isinstance(trim_k, int) or trim_k < 1:
+            raise ValueError(f"trim_k must be an int >= 1, got {trim_k!r}")
+        self.aggregation_rule = aggregation_rule
+        self.trim_k = int(trim_k)
+        if aggregation_rule != "fedavg":
+            # Robust rules are order statistics: they have no secure-sum
+            # form, no staleness-weighted form, and they replace (rather
+            # than compose with) a custom aggregate function.
+            if aggregate_fn is not None or masked_aggregate_fn is not None:
+                raise ValueError(
+                    "aggregation_rule= and a custom aggregate_fn/"
+                    "masked_aggregate_fn are mutually exclusive"
+                )
+            if secure:
+                raise ValueError(
+                    f"aggregation_rule={aggregation_rule!r} cannot run under "
+                    "secure aggregation: the controller only ever sees a "
+                    "masked sum, and order statistics need the rows"
+                )
+            if (self.protocol.weighting() == "staleness"
+                    or getattr(self.protocol, "aggregate_scope", None) == "buffer"):
+                raise ValueError(
+                    f"aggregation_rule={aggregation_rule!r} is not defined "
+                    "for staleness-weighted protocols (async / FedBuff): "
+                    "the staleness discount has no order-statistic "
+                    "analogue.  Use aggregation_rule='fedavg' there — see "
+                    "the support matrix in docs/PROTOCOLS.md"
+                )
+        # A custom masked rule (or the wrapped custom aggregate_fn) opts out
+        # of the rule-matched sharded reduction.  Nothing reads this flag
+        # until that reduction (slice G) is ported.
+        self._masked_is_default = aggregate_fn is None and masked_aggregate_fn is None
+        if aggregation_rule == "median":
+            self.aggregate_fn = lambda stack, w: aggregation.coordinate_median(stack)
+            self.masked_aggregate_fn = aggregation.masked_coordinate_median
+        elif aggregation_rule == "trimmed_mean":
+            tk = self.trim_k
+            self.aggregate_fn = lambda stack, w: aggregation.trimmed_mean(stack, tk)
+            self.masked_aggregate_fn = (
+                lambda arena, w, m: aggregation.masked_trimmed_mean(arena, w, m, tk)
+            )
+        elif masked_aggregate_fn is not None:
+            self.aggregate_fn = aggregate_fn or aggregation.fedavg
             self.masked_aggregate_fn = masked_aggregate_fn
         elif aggregate_fn is not None:
+            self.aggregate_fn = aggregate_fn
             self.masked_aggregate_fn = lambda arena, w, m: aggregate_fn(arena, w * m)
         else:
+            self.aggregate_fn = aggregation.fedavg
             self.masked_aggregate_fn = aggregation.masked_weighted_average
         self.server_opt = server_optimizer or make_server_optimizer("fedavg")
         self.store = store or ModelStore()
@@ -292,6 +347,12 @@ class Controller:
             # reproducible.
             for lid in self._learners:
                 self.arena.ensure_row(lid)
+            if self.aggregation_rule == "trimmed_mean" and 2 * self.trim_k >= self.arena.n_max:
+                raise ValueError(
+                    f"trim_k={self.trim_k} trims 2*trim_k={2 * self.trim_k} "
+                    f"rows but the arena only holds {self.arena.n_max}; "
+                    "every cohort would fall back to the untrimmed mean"
+                )
         for learner in self._learners.values():
             self._ship_manifest(learner)
 

@@ -142,6 +142,7 @@ class Driver:
             flat_uploads=env.flat_uploads,
             profile_decay=env.profile_decay,
             aggregation_rule=env.aggregation_rule,
+            trim_k=env.trim_k,
             arena_dtype=env.arena_dtype,
             sparse_mode=env.sparse_mode,
             journal_sink=cfg.journal_sink,

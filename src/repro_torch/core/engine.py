@@ -20,7 +20,10 @@ The loop is the only consumer of the queue, so all state mutation is
 serialized without protocol code touching a lock.  Learner work runs on a
 ``ThreadPoolExecutor``; CUDA work issued from those threads goes to the
 default stream, which keeps it correct.  Continuous policies, deadlines,
-fault fates and checkpoints are slice B of the port.
+the transport fault fates (``lost``/``dup``) and checkpoints are slice B of
+the port: an arrival whose metadata carries a ``fault`` raises
+``NotImplementedError``.  Adversarial fates (``core/faults.py``) ride on
+``ok`` uploads and meet the admission screen and quarantine like any other.
 """
 
 from __future__ import annotations
@@ -420,6 +423,13 @@ class RoundEngine:
                 raise event.error
             lid = event.learner_id
             up = event.update.upload
+            fault = up.metadata.get("fault") if up is not None else None
+            if fault is not None:
+                # Never ingest a lost or duplicated upload as if it were ok.
+                raise NotImplementedError(
+                    f"the {fault!r} upload fate is not ported yet: enacting "
+                    "transport fault fates is slice B of the port (ROADMAP.md)"
+                )
             staleness = c._model_version - c._learner_versions.get(lid, 0)
             up_bytes = int(up.payload.nbytes) if up is not None else None
             if up_bytes is not None:

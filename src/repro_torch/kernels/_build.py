@@ -3,7 +3,10 @@
 The kernels in ``kernels/csrc/`` have a plain C interface, so they are
 compiled by ``nvcc`` straight into one shared library and bound with
 ``ctypes`` — a build of seconds, where one that includes PyTorch's headers
-takes minutes.  Each source compiles in its own ``nvcc`` process, all started
+takes minutes.  The sources are ``fedavg.cu`` (masked FedAvg),
+``quantize.cu`` (int8 quantize and dequantize), ``fused_agg.cu`` (the
+dequant-into-aggregate) and ``robust.cu`` (the masked trimmed mean's
+rank-select).  Each source compiles in its own ``nvcc`` process, all started
 together, and one more links the objects.  The build runs at first use, on
 the machine with the card, into ``build/repro_torch_kernels/`` at the
 repository root, keyed on a hash of the sources and flags: a changed source
@@ -26,7 +29,8 @@ import time
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "load_library", "count_launch"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "fedavg.cu", _CSRC / "quantize.cu", _CSRC / "fused_agg.cu")
+SOURCES = (_CSRC / "fedavg.cu", _CSRC / "quantize.cu", _CSRC / "fused_agg.cu",
+           _CSRC / "robust.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -47,6 +51,8 @@ _SIGNATURES = {
     "repro_dequantize": [_P, _P, _P, _L, _I, _P],
     # q, q row stride, scales, scales row stride, w_hat, mask, out, N, P, group, stream
     "repro_fedavg_q8": [_P, _L, _P, _L, _P, _P, _P, _I, _L, _I, _P],
+    # arena, dtype code, row stride, mask, out, N, P, trim_k, stream
+    "repro_trimmed_mean": [_P, _I, _L, _P, _P, _I, _L, _I, _P],
 }
 
 

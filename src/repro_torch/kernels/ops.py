@@ -21,9 +21,10 @@ import torch
 from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels import fused_agg as _fused
 from repro_torch.kernels import quantize as _quant
+from repro_torch.kernels import robust as _robust
 
-__all__ = ["fedavg", "masked_fedavg", "masked_fedavg_q8", "quantize", "dequantize",
-           "QuantCodec"]
+__all__ = ["fedavg", "masked_fedavg", "masked_fedavg_q8", "masked_trimmed_mean",
+           "quantize", "dequantize", "QuantCodec"]
 
 
 def _route(x: torch.Tensor) -> str:
@@ -61,6 +62,23 @@ def masked_fedavg_q8(
     if _route(arena_q) == "cuda":
         return _fused.masked_fedavg_q8_cuda(arena_q, scales, weights, mask, group)
     return _fused.masked_fedavg_q8_torch(arena_q, scales, weights, mask, group)
+
+
+def masked_trimmed_mean(
+    arena: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor, trim_k: int = 1
+) -> torch.Tensor:
+    """Masked trimmed mean over the device-resident ``(N_max, P)`` arena, f32.
+
+    Signature-compatible with ``core/aggregation.masked_trimmed_mean``:
+    ``weights`` is accepted and ignored, order statistics being weight-blind.
+    Any width runs unpadded; float rows other than f32 and bf16 are read as f32.
+    """
+    del weights  # order statistics are weight-blind by design
+    if arena.dtype not in (torch.float32, torch.bfloat16):
+        arena = arena.to(torch.float32)
+    if _route(arena) == "cuda":
+        return _robust.masked_trimmed_mean_cuda(arena, mask, trim_k)
+    return _robust.masked_trimmed_mean_torch(arena, mask, trim_k)
 
 
 def quantize(

@@ -3,7 +3,8 @@
 The port of ``repro/kernels/ref.py`` for the ported kernels.  The f32
 references are the kernels' plain versions in :mod:`repro_torch.kernels.fedavg`
 and :mod:`repro_torch.kernels.quantize`/``fused_agg`` under the reference's
-names, so there is one plain version to keep in step.
+names (and :mod:`repro_torch.kernels.robust`'s sort-then-trim), so there is
+one plain version to keep in step.
 The f64 versions are independent host numpy, genuine f64 whatever the device.
 
 One deliberate difference: :func:`fedavg_ref` normalizes like the
@@ -22,10 +23,12 @@ from repro_torch.kernels.fedavg import masked_fedavg_torch as masked_fedavg_ref
 from repro_torch.kernels.fused_agg import masked_fedavg_q8_torch as masked_fedavg_q8_ref
 from repro_torch.kernels.quantize import dequantize_torch as dequantize_ref
 from repro_torch.kernels.quantize import quantize_torch as quantize_ref
+from repro_torch.kernels.robust import masked_trimmed_mean_torch as masked_trimmed_mean_ref
 
 __all__ = [
-    "fedavg_ref", "masked_fedavg_ref", "masked_fedavg_q8_ref", "quantize_ref",
-    "dequantize_ref", "fedavg_f64", "masked_fedavg_f64", "masked_fedavg_q8_f64",
+    "fedavg_ref", "masked_fedavg_ref", "masked_fedavg_q8_ref", "masked_trimmed_mean_ref",
+    "quantize_ref", "dequantize_ref", "fedavg_f64", "masked_fedavg_f64",
+    "masked_fedavg_q8_f64", "masked_trimmed_mean_f64",
 ]
 
 
@@ -60,3 +63,17 @@ def masked_fedavg_q8_f64(q, scales, weights, mask, group: int = 256) -> np.ndarr
     n, p = qh.shape
     rows = (qh.reshape(n, p // group, group) * sh[:, :, None]).reshape(n, p)
     return masked_fedavg_f64(rows, weights, mask)
+
+
+def masked_trimmed_mean_f64(arena, mask, trim_k: int) -> np.ndarray:
+    """Host f64 oracle of :func:`masked_trimmed_mean_ref`: per column, the
+    valid rows sorted, ``trim_k`` dropped from each end and the rest averaged;
+    the untrimmed mean of the valid rows when that leaves none; 0 with none."""
+    rows, m = _f64(arena), _f64(mask)
+    n_valid = int(m.sum())
+    if n_valid == 0:
+        return np.zeros(rows.shape[1])
+    valid = np.sort(rows[m > 0], axis=0)
+    if n_valid <= 2 * trim_k:
+        return valid.mean(axis=0)
+    return valid[trim_k: n_valid - trim_k].mean(axis=0)

@@ -1,0 +1,105 @@
+"""Masked trimmed mean over the arena: the hand-written Hopper kernel's wrapper.
+
+Replaces the reference's TPU kernel ``repro/kernels/robust.py``
+``masked_trimmed_mean_pallas`` (the byzantine-robust reduction, once per
+sync round under ``aggregation_rule="trimmed_mean"``).  The CUDA kernel
+(``csrc/robust.cu``) rank-selects column by column; its header gives the
+bound (the ``N^2`` compare-and-count pairs per column, on the CUDA cores)
+and what the design does about it.  The TPU tiling helpers (the VMEM block
+choice and the pad in the reference's ``ops.py``) are not ported: the kernel
+takes any ``P``.
+
+Beside the kernel wrapper sits its plain PyTorch version, the sort-then-trim
+of ``repro/kernels/ref.py``: the CPU path, and the yardstick ``chip_smoke.py``
+holds the kernel against on the card.  The two sum the band in different
+orders (row order in the kernel, sorted order in the sort), so they agree to
+float rounding, not bit for bit.
+
+The kernel wrapper counts its launches in a plain integer
+(``masked_trimmed_mean_cuda.launches``), incremented only where the kernel is
+launched.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import count_launch, load_library
+
+__all__ = ["masked_trimmed_mean_torch", "masked_trimmed_mean_cuda"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_trim(trim_k: int, n: int) -> None:
+    """The reference kernel's trace-time check: ``0 <= trim_k``, ``2·trim_k < N``."""
+    if trim_k < 0 or 2 * trim_k >= n:
+        raise ValueError(f"trim_k={trim_k} invalid for N={n}")
+
+
+def masked_trimmed_mean_torch(
+    arena: torch.Tensor, mask: torch.Tensor, trim_k: int
+) -> torch.Tensor:
+    """``(N, P) × (N,) -> (P,)`` trimmed mean over valid rows, f32, plain torch.
+
+    Sort-then-trim: invalid rows float to ``+inf`` by a select, so garbage
+    (even NaN) in a dead row never reaches the sum; the surviving band is
+    ranks ``[trim_k, n_valid - trim_k)``; a degenerate cohort
+    (``n_valid <= 2·trim_k``) falls back to the untrimmed masked mean, and
+    no valid row gives 0.
+    """
+    n = arena.shape[0]
+    _check_trim(trim_k, n)
+    m = torch.as_tensor(mask).to(arena.device, torch.float32)
+    x = arena.to(torch.float32)
+    live = m[:, None] > 0
+    s = torch.sort(torch.where(live, x, torch.inf), dim=0).values
+    n_valid = m.sum().to(torch.int32)
+    ranks = torch.arange(n, device=arena.device, dtype=torch.int32)
+    band = (ranks >= trim_k) & (ranks < n_valid - trim_k)
+    count = band.to(torch.float32).sum()
+    trimmed = torch.where(band[:, None], s, 0.0).sum(0) / torch.clamp(count, min=1.0)
+    fallback = torch.where(live, x, 0.0).sum(0) / torch.clamp(m.sum(), min=1.0)
+    return torch.where(count > 0, trimmed, torch.where(n_valid > 0, fallback, 0.0))
+
+
+def masked_trimmed_mean_cuda(
+    arena: torch.Tensor, mask: torch.Tensor, trim_k: int
+) -> torch.Tensor:
+    """Masked trimmed mean on the card through the hand-written kernel.
+
+    Reads the arena in place at its padded width (row stride passed in); the
+    caller slices ``[:num_params]``.  Raises on a non-CUDA tensor, an
+    unsupported dtype or layout, an impossible ``trim_k`` or a failed launch.
+    """
+    if arena.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {arena.device}")
+    if arena.ndim != 2:
+        raise ValueError(f"expected an (N, P) arena, got shape {tuple(arena.shape)}")
+    code = _DTYPE_CODES.get(arena.dtype)
+    if code is None:
+        raise ValueError(f"arena rows must be float32 or bfloat16, got {arena.dtype}")
+    n, p = arena.shape
+    if n < 1:
+        raise ValueError("the arena needs at least one row")
+    if arena.stride(1) != 1 or arena.stride(0) < p:
+        raise ValueError("arena rows must be contiguous along P (stride(1) == 1)")
+    _check_trim(trim_k, n)
+    m = torch.as_tensor(mask).to(arena.device, torch.float32).contiguous()
+    if m.shape != (n,):
+        raise ValueError(f"mask must be ({n},), got {tuple(m.shape)}")
+    out = torch.empty((p,), dtype=torch.float32, device=arena.device)
+    lib = load_library().lib
+    with torch.cuda.device(arena.device):
+        stream = torch.cuda.current_stream(arena.device).cuda_stream
+        rc = lib.repro_trimmed_mean(
+            arena.data_ptr(), code, arena.stride(0), m.data_ptr(), out.data_ptr(),
+            n, p, int(trim_k), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"repro_trimmed_mean launch failed with cudaError {rc}")
+    count_launch(masked_trimmed_mean_cuda)
+    return out
+
+
+masked_trimmed_mean_cuda.launches = 0

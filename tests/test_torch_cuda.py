@@ -9,7 +9,9 @@ the reference, so it runs where only the port is installed:
 Kernel bars: atol = rtol = 1e-5 for f32 rows, 3e-2 for bf16 rows, against
 the plain torch version on the same card and the f64 host oracle; quantize
 and dequantize bit-identical to their plain versions; the fused
-dequant-into-aggregate at atol = rtol = 2e-5.
+dequant-into-aggregate at atol = rtol = 2e-5; the masked trimmed mean at
+atol = rtol = 1e-5 in f32 and bf16 alike (both versions widen bf16 to f32
+exactly; they differ only in the order they sum the band).
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from repro_torch.kernels import fused_agg as tfused
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import robust as trobust
 from repro_torch.launch import train
 from repro_torch.models import mlp
 
@@ -146,4 +149,75 @@ def test_int8_arena_rounds_launch_the_fused_kernel(cuda_device):
     assert arena.buffer.device.type == "cuda" and arena.buffer.dtype == torch.int8
     assert driver.controller.telemetry.value("engine.uploads.quantized_direct") == (
         rounds * n_learners)
+    assert all(np.isfinite(h.metrics["eval_loss"]) for h in history)
+
+
+def _trimmed_inputs(n, p, seed, dead=True):
+    """Normal rows (a third of them dead, holding NaN and 1e30), duplicated
+    rows and a block of all-equal columns: the kernel's ties and garbage."""
+    rng = np.random.default_rng(seed)
+    rows = (rng.normal(size=(n, p)) * 3).astype(np.float32)
+    if n >= 4:
+        rows[n // 2] = rows[0]
+        rows[n // 2 + 1] = -rows[1]
+    rows[:, : p // 8] = 0.5
+    mask = np.ones((n,), np.float32)
+    if dead:
+        mask[2::3] = 0.0
+        rows[2::3] = np.nan
+        rows[5::6] = 1e30
+    return rows, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,trim_k", [(3, 0), (3, 1), (8, 3), (33, 8), (64, 31), (2001, 1000)])
+@pytest.mark.parametrize("p", [1024, 5000])
+def test_trimmed_mean_kernel_matches_plain(cuda_device, n, trim_k, p, dtype):
+    for dead in (False, True):
+        rows, mask = _trimmed_inputs(n, p, seed=n + p + trim_k, dead=dead)
+        trows = torch.from_numpy(rows).to(cuda_device, dtype)
+        tm = torch.from_numpy(mask).to(cuda_device)
+        before = trobust.masked_trimmed_mean_cuda.launches
+        got = tops.masked_trimmed_mean(trows, torch.ones_like(tm), tm, trim_k=trim_k)
+        torch.cuda.synchronize()
+        assert trobust.masked_trimmed_mean_cuda.launches == before + 1
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        want = trobust.masked_trimmed_mean_torch(trows, tm, trim_k)
+        _close(got.cpu(), want.cpu(), 1e-5)
+        oracle = tref.masked_trimmed_mean_f64(trows.float().cpu(), mask, trim_k)
+        _close(got.cpu(), oracle, 1e-5)
+
+
+def test_trimmed_mean_kernel_edges(cuda_device):
+    rows, mask = _trimmed_inputs(8, 3000, seed=1)
+    trows = torch.from_numpy(rows).to(cuda_device)
+    none = tops.masked_trimmed_mean(trows, torch.ones(8), torch.zeros(8, device=cuda_device), 2)
+    assert torch.count_nonzero(none) == 0
+    two = torch.zeros(8, device=cuda_device)
+    two[[0, 4]] = 1.0  # degenerate cohort: the untrimmed mean of rows 0 and 4
+    got = tops.masked_trimmed_mean(trows, torch.ones(8), two, trim_k=2)
+    _close(got.cpu(), (rows[0] + rows[4]) / 2.0, 1e-5)
+    with pytest.raises(ValueError, match="trim_k=4 invalid for N=8"):
+        trobust.masked_trimmed_mean_cuda(trows, torch.ones(8, device=cuda_device), 4)
+    padded = torch.zeros((8, 4096), device=cuda_device)
+    padded[:, :3000] = trows  # the arena's padded width, read in place
+    got = tops.masked_trimmed_mean(padded[:, :3000], torch.ones(8),
+                                   torch.ones(8, device=cuda_device), trim_k=1)
+    want = trobust.masked_trimmed_mean_torch(trows, torch.ones(8, device=cuda_device), 1)
+    _close(got.cpu(), want.cpu(), 1e-5)
+
+
+def test_trimmed_mean_rounds_launch_the_kernel(cuda_device):
+    rounds = 2
+    _, learners = train.build_housing_learners("100k", 5, 0, device=cuda_device)
+    init = mlp.init_params(torch.Generator().manual_seed(0), housing_mlp.reduced(), cuda_device)
+    driver = Driver(FederationEnv(protocol="sync", local_steps=2, batch_size=16,
+                                  aggregation_rule="trimmed_mean", trim_k=2,
+                                  termination=TerminationCriteria(max_rounds=rounds),
+                                  device=cuda_device))
+    driver.initialize(init, learners)
+    before = (trobust.masked_trimmed_mean_cuda.launches, tfed.masked_fedavg_cuda.launches)
+    history = driver.run()
+    assert trobust.masked_trimmed_mean_cuda.launches - before[0] == rounds
+    assert tfed.masked_fedavg_cuda.launches == before[1]
     assert all(np.isfinite(h.metrics["eval_loss"]) for h in history)

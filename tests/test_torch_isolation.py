@@ -33,6 +33,7 @@ leaked = sorted(m for m in sys.modules
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 20, names
+assert {"repro_torch.core.faults", "repro_torch.kernels.robust"} <= set(names), names
 """
 
 

@@ -152,8 +152,10 @@ def test_admission_screen_rejects_nan_row_in_both():
 def test_controller_refuses_later_slices():
     for kwargs, slice_name in (({"secure": True}, "slice E"),
                                ({"upload_codec": "topk"}, "slice F"),
-                               ({"aggregation_rule": "median"}, "slice D"),
                                ({"arena_mesh": object()}, "slice G"),
                                ({"checkpoint_every": 1}, "slice B")):
         with pytest.raises(NotImplementedError, match=slice_name):
             TController(device="cpu", **kwargs)
+    # Slice D is ported: the robust rules construct.
+    for rule in ("median", "trimmed_mean"):
+        assert TController(device="cpu", aggregation_rule=rule).aggregation_rule == rule
