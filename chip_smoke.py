@@ -10,7 +10,12 @@ nothing of the JAX package.  Phases, each printing its own lines:
              source, all at once;
 3. kernels — every hand-written kernel against its plain PyTorch version on
              the card: FedAvg (f32 atol=rtol=1e-5, bf16 3e-2; NaN dead rows,
-             all-zero weights, the empty mask); quantize and dequantize
+             all-zero weights, the empty mask, N = 1,100 and 2,500, a view
+             ``arena[:, 1:]`` whose rows are not 16-byte aligned, P of 1, 3
+             and 5, one live row of 32; two launches bit-identical; as
+             diagnostics, the masked kernel timed with 16 of 32 rows dead and
+             the device kernels ``torch.profiler`` sees per wrapper call);
+             quantize and dequantize
              bit-identical (groups 256 and 512, with NaN, ±inf, all-zero and
              subnormal groups); the fused dequant-into-aggregate
              (atol=rtol=2e-5; NaN and 1e30 dead-row scales, zero weights,
@@ -464,6 +469,49 @@ def check_kernels(kfed, dev) -> dict:
         print(json.dumps({"phase": "kernels", "dtype": str(dtype),
                           "zero_weights_uniform": True, "empty_mask_zeros": True}),
               flush=True)
+        # What the bulk-copy design opens: N past the old 1,024 staging limit
+        # and past the 2,048 staging cap, a view whose data_ptr and rows are
+        # not 16-byte aligned, widths under one 16-byte window; each launched
+        # twice, bit-identical (no atomics).
+        for n, p, view in ((1100, 777, False), (2500, 333, False), (32, 5001, True),
+                           (7, 1, False), (7, 3, False), (7, 5, False)):
+            arena = (torch.randn((n, p + view), generator=gen, device=dev) * 3).to(dtype)
+            if view:
+                arena = arena[:, 1:]
+            w = torch.rand((n,), generator=gen, device=dev) + 0.05
+            m = torch.ones((n,), device=dev)
+            m[1::3] = 0.0
+            got_u = kfed.fedavg_cuda(arena, w)
+            _expect(_same_bits(got_u, kfed.fedavg_cuda(arena, w)),
+                    f"fedavg {dtype} {n}x{p}: two launches differ")
+            e_plain = _close(got_u, kfed.fedavg_torch(arena, w), tol,
+                             what=f"fedavg {dtype} {n}x{p} view={view}")
+            arena[m == 0] = float("nan")
+            got = kfed.masked_fedavg_cuda(arena, w, m)
+            _expect(_same_bits(got, kfed.masked_fedavg_cuda(arena, w, m)),
+                    f"masked_fedavg {dtype} {n}x{p}: two launches differ")
+            e_mask = _close(got, kfed.masked_fedavg_torch(arena, w, m), tol,
+                            what=f"masked_fedavg {dtype} {n}x{p} view={view}")
+            torch.cuda.synchronize()
+            print(json.dumps({"phase": "kernels", "dtype": str(dtype), "n": n, "p": p,
+                              "unaligned_view": view, "fedavg_err": e_plain,
+                              "masked_err": e_mask, "tol": tol, "bit_identical": True}),
+                  flush=True)
+            if dtype == torch.float32:
+                worst["fedavg"] = max(worst["fedavg"], e_plain)
+                worst["masked_fedavg"] = max(worst["masked_fedavg"], e_mask)
+        # One live row of 32, the other 31 NaN: the output is that row.
+        arena = (torch.randn((32, 50_001), generator=gen, device=dev) * 3).to(dtype)
+        m = torch.zeros((32,), device=dev)
+        m[13] = 1.0
+        arena[m == 0] = float("nan")
+        w = torch.rand((32,), generator=gen, device=dev) + 0.05
+        got = kfed.masked_fedavg_cuda(arena, w, m)
+        _close(got, kfed.masked_fedavg_torch(arena, w, m), tol, what=f"masked_fedavg {dtype} one live")
+        _close(got, arena[13].float(), 0.0, atol=0.0, what=f"masked_fedavg {dtype} one live row")
+        print(json.dumps({"phase": "kernels", "dtype": str(dtype), "one_live_row_of": 32}),
+              flush=True)
+        del arena
     return worst
 
 
@@ -603,6 +651,28 @@ def _timed(name: str, kern, plain, library, nbytes: float, flops: float, shape) 
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib}
 
 
+def _count_device_kernels(name: str, fn, shape, calls: int = 10) -> None:
+    """Diagnostic: the device kernels ``torch.profiler`` sees in ``calls``
+    wrapper calls, per call (the wrapper should launch one kernel and no
+    torch op); ``null`` where the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    total = sum(names.values())
+    print(json.dumps({"phase": "kernels", "diagnostic": f"{name} device kernels per call",
+                      "shape": shape, "per_call": total / calls if total else None,
+                      "kernels": names}), flush=True)
+
+
 def time_kernels(kfed, dev, errs: dict) -> dict:
     """Kernel, plain and library times at the shapes the main path gives each
     FedAvg kernel: the arena's (32, 10,174,464) f32 and the stack's
@@ -622,8 +692,25 @@ def time_kernels(kfed, dev, errs: dict) -> dict:
             kern = lambda: kfed.fedavg_cuda(rows, w)  # noqa: E731
             plain = lambda: kfed.fedavg_torch(rows, w)  # noqa: E731
         errs[name] = max(errs[name], _close(kern(), plain(), 1e-5, what=f"{name} timed inputs"))
+        _expect(_same_bits(kern(), kern()), f"{name}: two launches differ on the timed inputs")
         out[name] = _timed(name, kern, plain, lambda: torch.mv(rows.T, w_hat),
                            N_MAIN * p * 4 + 4 * p + 8 * N_MAIN, 2 * N_MAIN * p, [N_MAIN, p])
+        _count_device_kernels(name, kern, [N_MAIN, p])
+        if name == "masked_fedavg":
+            # Diagnostic: dead rows are never loaded, so 16 dead of 32 should
+            # take about half the all-live time (in turns: live, dead, dead, live).
+            half = m.clone()
+            half[1::2] = 0.0
+            dead = lambda: kfed.masked_fedavg_cuda(rows, w, half)  # noqa: E731
+            _close(dead(), kfed.masked_fedavg_torch(rows, w, half), 1e-5,
+                   what="masked_fedavg 16 of 32 dead")
+            live_a, dead_a, dead_b, live_b = (_time_ms(f) for f in (kern, dead, dead, kern))
+            print(json.dumps({"phase": "kernels", "diagnostic": "masked_fedavg 16 of 32 rows dead",
+                              "shape": [N_MAIN, p], "ms_16_dead": [dead_a, dead_b],
+                              "ms_all_live": [live_a, live_b],
+                              "ratio": min(dead_a, dead_b) / min(live_a, live_b),
+                              "bound_ms_16_dead": _bound(16 * p * 4 + 4 * p + 8 * N_MAIN,
+                                                         2 * 16 * p)[0]}), flush=True)
         del rows
         torch.cuda.empty_cache()
     return out

@@ -43,8 +43,9 @@ _count_lock = threading.Lock()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argtypes of every C entry point (pointers and the stream are ``c_void_p``).
 _SIGNATURES = {
-    # arena, dtype code, row stride, w_hat, mask or NULL, out, N, P, stream
-    "repro_fedavg": [_P, _I, _L, _P, _P, _P, _I, _L, _P],
+    # arena, dtype code, row stride, raw weights, mask or NULL, out, N, P, then the
+    # launch plan (grid, tile bytes, stages, dynamic shared memory bytes), stream
+    "repro_fedavg": [_P, _I, _L, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
     # x, q, scales, n_groups, group, stream
     "repro_quantize": [_P, _P, _P, _L, _I, _P],
     # q, scales, out, n, group, stream

@@ -9,9 +9,18 @@ about it.
 
 Beside each kernel wrapper sits its plain PyTorch version, the einsum of
 ``repro/core/aggregation.py``: the CPU tests run it, and ``chip_smoke.py``
-holds the kernel against it on the card.  The normalized ``(N,)`` weight
-vector is computed here with torch ops on the tensor's device, as the
-reference's wrapper does; the kernel does the ``(N, P)`` pass.
+holds the kernel against it on the card.
+
+On a CUDA tensor a wrapper is one launch and nothing else: it checks its
+inputs, allocates the output with ``torch.empty``, makes one ctypes call and
+raises if the launch failed.  The weights are normalized inside the kernel
+(every block sums them in one fixed order and applies ``normalize``'s or
+``masked_normalize``'s zero-sum fallback), so no torch op runs on the
+device around it.  The launch plan — a persistent grid over tiles of one
+fixed width, one fixed ring, the dynamic shared memory — is computed here in Python
+(:func:`launch_plan`), as is the aligned-window arithmetic of the bulk
+copies (:func:`tile_window`) that the kernel follows, so the CPU tests cover
+both.
 
 Each kernel wrapper counts its launches in a plain integer
 (``masked_fedavg_cuda.launches``, ``fedavg_cuda.launches``), incremented only
@@ -20,9 +29,14 @@ where the kernel is launched, so a run can show it went through the kernel.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import count_launch, load_library
+
 __all__ = [
     "normalize",
     "masked_normalize",
@@ -30,10 +44,31 @@ __all__ = [
     "fedavg_torch",
     "masked_fedavg_cuda",
     "fedavg_cuda",
+    "LaunchPlan",
+    "launch_plan",
+    "tile_window",
+    "smem_bytes",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: The launch plan, chosen by measurement on the card (PERF.md): each block
+#: walks tiles of ``TILE_BYTES`` of every row through a ring of ``STAGES``
+#: one-row stages, ``BLOCKS_PER_SM`` blocks to an SM.  ``csrc/fedavg.cu``
+#: refuses any other tile or stage count.
+TILE_BYTES = 32768
+STAGES = 3
+BLOCKS_PER_SM = 2
+#: Rows whose weights and live list are staged in shared memory; past it the
+#: producer warp reads the mask and weights from global memory, tile by tile.
+STAGE_CAP = 2048
+#: Largest dynamic shared memory one block may take on Hopper (227 KB), the
+#: shared memory of one SM (228 KB), and what the system keeps per block.
+SMEM_BLOCK_MAX = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1024
+#: Block-wide scratch: the warp partials and the sums.
+_MISC_BYTES = 512
 
 def normalize(weights: torch.Tensor) -> torch.Tensor:
     """``w / Σw`` in f32, uniform when the weights sum to 0 (the controller's
@@ -79,12 +114,122 @@ def fedavg_torch(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The launch plan and the bulk copies' windows (mirrored by csrc/fedavg.cu)
+# ---------------------------------------------------------------------------
+
+
+class Window(NamedTuple):
+    """One row's bytes of one tile: ``[a, b)`` split into three parts.
+
+    ``[a, head_end)`` and ``[tail_start, b)`` are under 16 bytes each and
+    are read with plain loads; ``[src, src + nbytes)`` is the bulk copy, a
+    16-byte-aligned window landing ``dst`` bytes into the row's ring slot
+    (``TILE_BYTES + 128`` bytes).
+    Column ``c0 + j`` sits ``delta + j·esize`` bytes into the slot.
+    """
+
+    a: object
+    b: object
+    src: object
+    nbytes: object
+    dst: object
+    delta: object
+    head_end: object
+    tail_start: object
+
+
+def tile_window(base, esize, row_stride, n, p, row, c0, c1) -> Window:
+    """The aligned window of ``row``'s columns ``[c0, c1)``; numpy-vectorized.
+
+    ``base`` is the tensor's ``data_ptr()``, ``row_stride`` in elements.  The
+    window is the tile's byte range with its start rounded down to 128 bytes
+    and its end up to 16, clipped to the view's extent
+    ``[base, base + ((n-1)·row_stride + p)·esize)`` so no copy reads before
+    the first row's first byte or past the last row's last one.  What the
+    clip cuts off is the head or tail edge.  The slot's first byte stands
+    for the address ``a`` rounded down to 128, so an unclipped copy's source
+    and destination are both 128-byte aligned.  ``csrc/fedavg.cu``'s
+    ``tile_window`` is the same arithmetic.
+    """
+    lo = base
+    hi = base + ((n - 1) * row_stride + p) * esize
+    a = base + (row * row_stride + c0) * esize
+    b = base + (row * row_stride + c1) * esize
+    origin = a & ~127
+    ws = np.maximum(origin, (lo + 15) & ~15)
+    we = np.maximum(np.minimum((b + 15) & ~15, hi & ~15), ws)
+    return Window(a=a, b=b, src=ws, nbytes=we - ws, dst=ws - origin, delta=a - origin,
+                  head_end=np.clip(ws, a, b), tail_start=np.clip(we, a, b))
+
+
+def smem_bytes(n: int, staged: bool) -> int:
+    """Dynamic shared memory of one block (``csrc/fedavg.cu``'s ``Layout``):
+    the ring (``STAGES`` slots of ``TILE_BYTES + 128``), each slot's weight
+    and byte offset, a full and an empty barrier per stage, the misc scratch
+    and, when staged, ŵ and the live list (4 bytes a row each)."""
+    return (STAGES * (TILE_BYTES + 128) + STAGES * 8 + STAGES * 16 + _MISC_BYTES
+            + (8 * n if staged else 0))
+
+
+class LaunchPlan(NamedTuple):
+    """How ``repro_fedavg`` is launched (see :func:`launch_plan`)."""
+
+    grid: int
+    staged: bool
+    smem_bytes: int
+    n_tiles: int
+
+
+@functools.cache
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device: torch.device) -> int:
+    return _sm_count_of(device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
+def launch_plan(rows: torch.Tensor, *, sm_count: int | None = None) -> LaunchPlan:
+    """The launch plan for an ``(N, P)`` arena: its tiles of ``TILE_BYTES``
+    per row, whether ŵ and the live list are staged in shared memory
+    (``N <= STAGE_CAP``), the block's dynamic shared memory, and a persistent
+    grid of the fewest blocks that take as many rounds over the tiles as
+    ``BLOCKS_PER_SM`` blocks on every SM would, so the last round is as full
+    as the first.  ``sm_count`` defaults to the card's (pass it for a host
+    tensor)."""
+    n, p = rows.shape
+    if sm_count is None:
+        sm_count = _sm_count(rows.device)
+    staged = n <= STAGE_CAP
+    n_tiles = -(-p // (TILE_BYTES // rows.element_size()))
+    rounds = -(-n_tiles // (sm_count * BLOCKS_PER_SM))
+    grid = -(-n_tiles // rounds) if rounds else 0
+    return LaunchPlan(grid=grid, staged=staged, smem_bytes=smem_bytes(n, staged),
+                      n_tiles=n_tiles)
+
+
+# ---------------------------------------------------------------------------
 # Hopper kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _launch(rows: torch.Tensor, w_hat: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-    """Check the inputs, launch ``repro_fedavg`` on the current stream."""
+def _vector(x, n: int, dev: torch.device, what: str) -> torch.Tensor:
+    """An ``(n,)`` f32 vector on ``dev``; moved there only if it is not
+    already (the controller's weights and mask are)."""
+    t = torch.as_tensor(x)
+    if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.to(dev, torch.float32).contiguous()
+    if t.shape != (n,):
+        raise ValueError(f"{what} must be ({n},), got {tuple(t.shape)}")
+    return t
+
+
+def _launch(rows: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Check the inputs, launch ``repro_fedavg`` on the current stream.
+
+    ``weights`` are raw: the kernel normalizes them.
+    """
     if rows.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {rows.device}")
     if rows.ndim != 2:
@@ -97,21 +242,18 @@ def _launch(rows: torch.Tensor, w_hat: torch.Tensor, mask: torch.Tensor | None) 
         raise ValueError("the arena needs at least one row")
     if rows.stride(1) != 1 or rows.stride(0) < p:
         raise ValueError("arena rows must be contiguous along P (stride(1) == 1)")
-    w_hat = w_hat.to(rows.device, torch.float32).contiguous()
-    if w_hat.shape != (n,):
-        raise ValueError(f"weights must be ({n},), got {tuple(w_hat.shape)}")
-    if mask is not None:
-        mask = mask.to(rows.device, torch.float32).contiguous()
-        if mask.shape != (n,):
-            raise ValueError(f"mask must be ({n},), got {tuple(mask.shape)}")
-    out = torch.empty((p,), dtype=torch.float32, device=rows.device)
+    dev = rows.device
+    w = _vector(weights, n, dev, "weights")
+    m = None if mask is None else _vector(mask, n, dev, "mask")
+    plan = launch_plan(rows)
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
     lib = load_library().lib
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
+    with torch.cuda.device(dev):
         rc = lib.repro_fedavg(
-            rows.data_ptr(), code, rows.stride(0), w_hat.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            n, p, stream,
+            rows.data_ptr(), code, rows.stride(0), w.data_ptr(),
+            None if m is None else m.data_ptr(), out.data_ptr(), n, p,
+            plan.grid, TILE_BYTES, STAGES, plan.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"repro_fedavg launch failed with cudaError {rc}")
@@ -121,21 +263,19 @@ def _launch(rows: torch.Tensor, w_hat: torch.Tensor, mask: torch.Tensor | None) 
 def masked_fedavg_cuda(
     arena: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
-    """Masked FedAvg on the card through the hand-written kernel.
+    """Masked FedAvg on the card through the hand-written kernel, one launch.
 
     Reads the arena in place at its padded width; the caller slices
     ``[:num_params]``.  Raises on a non-CUDA tensor or a failed launch.
     """
-    dev = arena.device
-    m = torch.as_tensor(mask).to(dev, torch.float32)
-    out = _launch(arena, masked_normalize(torch.as_tensor(weights).to(dev), m), m)
+    out = _launch(arena, weights, mask)
     count_launch(masked_fedavg_cuda)
     return out
 
 
 def fedavg_cuda(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Unmasked FedAvg on the card through the same kernel (no mask)."""
-    out = _launch(stack, normalize(torch.as_tensor(weights).to(stack.device)), None)
+    out = _launch(stack, weights, None)
     count_launch(fedavg_cuda)
     return out
 

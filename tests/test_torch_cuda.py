@@ -7,7 +7,12 @@ the reference, so it runs where only the port is installed:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Kernel bars: atol = rtol = 1e-5 for f32 rows, 3e-2 for bf16 rows, against
-the plain torch version on the same card and the f64 host oracle; quantize
+the plain torch version on the same card and the f64 host oracle (FedAvg
+also at the main path's full widths, where every block walks several tiles
+and the arena passes 2^31 bytes, at N = 1,100 and 2,500, on an unaligned
+view, at P of 1, 3 and 5, with one live row among NaN ones, zero weights and
+the empty mask, two launches bit-identical, one device kernel per wrapper
+call); quantize
 and dequantize bit-identical to their plain versions; the fused
 dequant-into-aggregate at atol = rtol = 2e-5; the masked trimmed mean at
 atol = rtol = 1e-5 in f32 and bf16 alike (both versions widen bf16 to f32
@@ -65,6 +70,106 @@ def test_kernel_matches_plain(cuda_device, n, p, dtype):
         before[0] + 1, before[1] + 1)
     _close(got_m.cpu(), tfed.masked_fedavg_torch(trows, tw, tm).cpu(), _TOL[dtype])
     _close(got_u.cpu(), tref.fedavg_f64(torch.from_numpy(rows).to(dtype), w), _TOL[dtype])
+
+
+def _fedavg_edge_inputs(case, dtype, dev):
+    """Rows, weights and mask for one of the cases the redesigned kernel opens:
+    N past the old 1,024 staging limit (1,100) and past the kernel's 2,048
+    staging cap (2,500); a view whose ``data_ptr`` and rows are not 16-byte
+    aligned; widths under one 16-byte window; one live row among NaN ones; zero
+    weights; the empty mask."""
+    shapes = {"n1100": (1100, 777), "n2500": (2500, 333), "unaligned_view": (32, 5001),
+              "p1": (7, 1), "p3": (7, 3), "p5": (7, 5), "one_live": (32, 4099),
+              "zero_weights": (7, 5003), "empty_mask": (7, 5003)}
+    n, p = shapes[case]
+    rng = np.random.default_rng(sorted(shapes).index(case))
+    rows = torch.from_numpy((rng.normal(size=(n, p)) * 3).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.uniform(size=(n,)) + 0.05).astype(np.float32)).to(dev)
+    m = torch.ones((n,), device=dev)
+    m[1::3] = 0.0
+    if case == "unaligned_view":
+        rows = rows[:, 1:]
+        assert rows.data_ptr() % 16 and (rows.stride(0) * rows.element_size()) % 16
+    elif case == "one_live":
+        m = torch.zeros((n,), device=dev)
+        m[13] = 1.0
+    elif case == "zero_weights":
+        w = torch.zeros((n,), device=dev)
+    elif case == "empty_mask":
+        m = torch.zeros((n,), device=dev)
+    rows[m == 0] = float("nan")
+    return rows, w, m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["n1100", "n2500", "unaligned_view", "p1", "p3", "p5",
+                                  "one_live", "zero_weights", "empty_mask"])
+def test_fedavg_kernel_edge_cases(cuda_device, case, dtype):
+    rows, w, m = _fedavg_edge_inputs(case, dtype, cuda_device)
+    tol = _TOL[dtype]
+    got = tops.masked_fedavg(rows, w, m)
+    again = tops.masked_fedavg(rows, w, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))  # no atomics
+    want = tfed.masked_fedavg_torch(rows, w, m)
+    assert torch.isfinite(got).all()
+    _close(got.cpu(), want.cpu(), tol)
+    if case == "empty_mask":
+        assert torch.count_nonzero(got) == 0
+    if case == "zero_weights":  # uniform over the valid rows
+        _close(got.cpu(), rows.float()[m > 0].mean(0).cpu(), tol)
+    clean = torch.nan_to_num(rows, nan=0.5)
+    got_u = tops.fedavg(clean, w)
+    again_u = tops.fedavg(clean, w)
+    assert torch.equal(got_u.view(torch.int32), again_u.view(torch.int32))
+    _close(got_u.cpu(), tfed.fedavg_torch(clean, w).cpu(), tol)
+
+
+P_MAIN = 10_174_464  # housing-mlp-10m's arena row
+P_STACK = 10_174_081  # the stack leg's unpadded rows, not 16-byte aligned
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [P_STACK, P_MAIN])
+@pytest.mark.parametrize("n", [1, 7, 32, 64])
+def test_fedavg_kernel_at_full_width(cuda_device, n, p, dtype):
+    """The shapes ``chip_smoke.py`` checks at full width: every block walks
+    several tiles round the ring, and at N = 64 the f32 arena passes 2^31
+    bytes, so row offsets need 64-bit arithmetic."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n * 7 + p % 97)
+    rows = (torch.randn((n, p), generator=gen, device=cuda_device) * 3).to(dtype)
+    w = torch.rand((n,), generator=gen, device=cuda_device) + 0.05
+    plan = tfed.launch_plan(rows)
+    assert plan.n_tiles > plan.grid  # at least two tiles for some block
+    got_u = tops.fedavg(rows, w)
+    _close(got_u.cpu(), tfed.fedavg_torch(rows, w).cpu(), _TOL[dtype])
+    m = torch.ones((n,), device=cuda_device)
+    m[1::3] = 0.0
+    rows[m == 0] = float("nan")
+    got = tops.masked_fedavg(rows, w, m)
+    again = tops.masked_fedavg(rows, w, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _close(got.cpu(), tfed.masked_fedavg_torch(rows, w, m).cpu(), _TOL[dtype])
+
+
+def test_fedavg_wrappers_launch_one_device_kernel(cuda_device):
+    """Each wrapper call is one device kernel, the normalization inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = torch.randn((32, 70_001), device=cuda_device)
+    w = torch.rand((32,), device=cuda_device) + 0.05
+    m = torch.ones((32,), device=cuda_device)
+    for call in (lambda: tfed.masked_fedavg_cuda(rows, w, m), lambda: tfed.fedavg_cuda(rows, w)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 5 and all("fedavg_kernel" in k for k in names), names
 
 
 def test_sync_rounds_launch_the_kernel(cuda_device):
