@@ -15,16 +15,23 @@ nothing of the JAX package.  Phases, each printing its own lines:
              and 5, one live row of 32; two launches bit-identical; as
              diagnostics, the masked kernel timed with 16 of 32 rows dead and
              the device kernels ``torch.profiler`` sees per wrapper call);
-             quantize and dequantize
-             bit-identical (groups 256 and 512, with NaN, ±inf, all-zero and
-             subnormal groups); the fused dequant-into-aggregate
-             (atol=rtol=2e-5; NaN and 1e30 dead-row scales, zero weights,
-             the empty mask); the masked trimmed mean (atol 1e-5, plus
-             rtol 1e-5 at full width; N from 3 to 1000 with several
-             ``trim_k`` each, NaN and 1e30 dead rows, duplicated rows,
-             all-equal columns, a degenerate cohort, the empty mask, the
-             ``ValueError`` of an impossible trim); timings at the main
-             path's shapes;
+             quantize and dequantize bit-identical (groups 256 and 512, with
+             NaN, ±inf, all-zero and subnormal groups; ``ops.quantize`` on
+             unpadded rows, a last group of 129 and tails at 1 and 7 mod 8,
+             in one launch that writes the wire's layout; the encoder's wire
+             bytes); the fused dequant-into-aggregate (atol=rtol=2e-5; NaN
+             and 1e30 dead-row scales, zero weights, the empty mask); the
+             masked trimmed mean (atol 1e-5, plus rtol 1e-5 at full width;
+             N from 2 to 1000 across the sorting network's template sizes
+             and the switch to the rank-select past 64, several ``trim_k``
+             each, NaN and 1e30 dead rows, duplicated and negated rows,
+             all-equal and ±0 columns, f32 and bf16, full width at N = 32
+             and 64, a degenerate cohort, the empty mask, the ``ValueError``
+             of an impossible trim); timings at the main path's shapes (the
+             quantize row as the encoder calls it, ``ops.quantize`` on the
+             unpadded row, on inputs in rotation), with the device kernels
+             and device time the profiler sees per call and the host time
+             per call;
 4. check   — small federations on the card agree with the same federations
              on the host: f32 (global buffer, rtol 1e-4 / atol 1e-5: the two
              devices sum in different orders across local steps), then the
@@ -45,7 +52,7 @@ nothing of the JAX package.  Phases, each printing its own lines:
              arena, fused reduce); ``int8_wire`` (int8 uplink decoded onto the
              f32 arena); ``trimmed_mean`` (a ``Controller`` on a
              ``FaultyChannel`` with 8 byzantine learners, ``trim_k=8``, built
-             as the reference's adversarial arm builds it; the rank-select
+             as the reference's adversarial arm builds it; the sorting-network
              kernel once per round); ``median`` (``FederationEnv(
              aggregation_rule="median")`` through ``Driver``, faultless; no
              hand kernel, ``torch.sort``).  Each leg's launch counts are
@@ -59,6 +66,7 @@ the repository's ``src/`` beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import pathlib
@@ -73,7 +81,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 # FP32 instructions issued per second on the CUDA cores (the 67 TFLOP/s
-# figure counts an FMA as two operations); only for the rank-select diagnostic.
+# figure counts an FMA as two operations); only for the network diagnostic.
 F32_ISSUE_PER_S = F32_FLOPS / 2
 P_MAIN = 10_174_464  # housing-mlp-10m row, padded to the arena's 1024 alignment
 P_STACK = 10_174_081  # housing-mlp-10m params: the stack leg's unpadded rows
@@ -538,29 +546,48 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def check_quantize(kq, dev) -> dict:
     """Quantize and dequantize against their plain versions: bit-identical
-    ``q``, scales and output at every size and group, special groups included."""
+    ``q``, scales and output at every size and group, special groups included;
+    ``ops.quantize`` reads the unpadded row (a last group of 129 at 100,225,
+    tails at n = 1 and 7 mod 8) in one launch and writes the wire's layout,
+    and the encoder's wire equals the plain version's bytes."""
+    from repro_torch.core.transport import Int8UploadCodec
     from repro_torch.kernels import ops
 
-    for size in (16_384, 100_000, P_MAIN):
+    for size in (16_384, 100_000, 100_225, 100_001, 100_007, P_STACK, P_MAIN):
         for group in (256, 512):
             x = torch.from_numpy(special_input(size, group, seed=size + group)).to(dev)
+            launches = kq.quantize_cuda.launches
             q, s = ops.quantize(x, group=group)  # pads to group * 64 like the reference
-            padded = torch.nn.functional.pad(x, (0, q.shape[0] - size))
-            pq, ps = kq.quantize_torch(padded, group)
+            one_launch = kq.quantize_cuda.launches == launches + 1
+            pq, ps = kq.quantize_torch(x, group, q.shape[0])
             bad_q = int((q != pq).sum())
             bad_s = int((s.view(torch.int32) != ps.view(torch.int32)).sum())
+            wire = kq.wire_prefix(q, s, s.shape[0])  # raises unless one buffer
             back = kq.dequantize_cuda(q, s, group)
             want = kq.dequantize_torch(q, s, group)
             bad_x = int((back.view(torch.int32) != want.view(torch.int32)).sum())
             torch.cuda.synchronize()
             print(json.dumps({"phase": "kernels", "quantize": size, "group": group,
-                              "padded": q.shape[0], "q_mismatch": bad_q,
-                              "scale_mismatch": bad_s, "dequantize_mismatch": bad_x,
+                              "padded": q.shape[0], "wire_bytes": wire.shape[0],
+                              "q_mismatch": bad_q, "scale_mismatch": bad_s,
+                              "dequantize_mismatch": bad_x, "one_launch": one_launch,
                               "special_scales": s[:8].tolist()}), flush=True)
-            _expect(bad_q == bad_s == bad_x == 0,
+            _expect(bad_q == bad_s == bad_x == 0 and one_launch,
                     f"quantize/dequantize {size} group {group}: {bad_q} q, {bad_s} scales, "
-                    f"{bad_x} dequantized values differ from the plain versions")
-            del x, q, s, padded, pq, ps, back, want
+                    f"{bad_x} dequantized values differ from the plain versions; "
+                    f"one launch: {one_launch}")
+            del x, q, s, wire, pq, ps, back, want
+    codec = Int8UploadCodec()
+    for size in (100_225, P_STACK):
+        x = torch.from_numpy(special_input(size, GROUP, seed=size)).to(dev)
+        n_padded, n_scales, nbytes = kq.wire_layout(size)
+        pq, ps = kq.quantize_torch(x, GROUP, n_padded)
+        want = kq.wire_prefix(pq, ps, n_scales).cpu().numpy()
+        got = codec.encode(x)
+        same = got.shape == (nbytes,) and bool((got == want).all())
+        print(json.dumps({"phase": "kernels", "int8_encode": size, "wire_bytes": int(got.shape[0]),
+                          "bit_identical": same}), flush=True)
+        _expect(same, f"Int8UploadCodec.encode {size}: the wire differs from the plain bytes")
     return {"quantize": 0.0, "dequantize": 0.0}
 
 
@@ -651,26 +678,63 @@ def _timed(name: str, kern, plain, library, nbytes: float, flops: float, shape) 
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib}
 
 
-def _count_device_kernels(name: str, fn, shape, calls: int = 10) -> None:
-    """Diagnostic: the device kernels ``torch.profiler`` sees in ``calls``
-    wrapper calls, per call (the wrapper should launch one kernel and no
-    torch op); ``null`` where the profiler records no device activity."""
+def _count_device_kernels(name: str, fn, shape, calls: int = 10,
+                          windows: int = 3) -> dict[str, int]:
+    """Diagnostic: the device kernels (and copies) ``torch.profiler`` sees in
+    ``calls`` wrapper calls, per call, and their summed device time per call;
+    ``null`` where the profiler records no device activity.  The profiler has
+    been seen to miss a record now and then, and a whole window once, never
+    to add one; so up to ``windows`` windows are traced until one holds
+    ``calls`` records, and the fullest is kept.  Returns the count of each
+    kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     names: dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            names[e.name] = names.get(e.name, 0) + 1
+    device_us = 0.0
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen: dict[str, int] = {}
+        us = 0.0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen[e.name] = seen.get(e.name, 0) + 1
+                us += e.time_range.end - e.time_range.start
+        if sum(seen.values()) > sum(names.values()):
+            names, device_us = seen, us
+        if sum(names.values()) >= calls:
+            break
     total = sum(names.values())
     print(json.dumps({"phase": "kernels", "diagnostic": f"{name} device kernels per call",
                       "shape": shape, "per_call": total / calls if total else None,
+                      "device_us_per_call": device_us / calls if total else None,
                       "kernels": names}), flush=True)
+    return names
+
+
+def _one_kernel_a_call(what: str, names: dict[str, int], kernel: str, calls: int) -> None:
+    """Record a failure unless the profiler saw one kernel, ``kernel``, once a
+    call (one missed record of ``calls`` accepted, as above)."""
+    seen = sum(names.values())
+    _expect(len(names) == 1 and kernel in next(iter(names)) and calls - 1 <= seen <= calls,
+            f"{what}: the profiler saw {names} in {calls} calls, not one {kernel} a call")
+
+
+def _host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call over ``calls`` calls with no synchronize
+    between them (what the wrapper costs the learner's thread)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def time_kernels(kfed, dev, errs: dict) -> dict:
@@ -717,31 +781,58 @@ def time_kernels(kfed, dev, errs: dict) -> dict:
 
 
 def time_int8_kernels(kq, kfu, dev, errs: dict) -> dict:
-    """The int8 kernels at the main path's shapes: quantize and dequantize on
-    one learner's (10,174,464,) row at group 256 (every upload's encode and,
-    on the int8-wire leg, decode), the fused reduce on the (32, 10,174,464)
-    int8 arena with its (32, 39,744) scales.  Each is held against its plain
-    version on the very inputs it is timed on first."""
+    """The int8 kernels at the main path's shapes: quantize as every upload's
+    encode calls it, ``ops.quantize`` on one learner's unpadded (10,174,081,)
+    row at group 256, and dequantize on the (10,174,464,) int8 row and its
+    (39,744,) scales (the int8-wire leg's decode), each on 8 inputs in
+    rotation (325 MB and 83 MB, so no call finds its input in the 50 MB L2);
+    the fused reduce on the (32, 10,174,464) int8 arena with its (32, 39,744)
+    scales.  Each is held against its plain version on the very inputs it is
+    timed on first."""
+    from repro_torch.core.transport import Int8UploadCodec
+    from repro_torch.kernels import ops
+
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
     p, groups = P_MAIN, P_MAIN // GROUP
-    x = torch.randn((p,), generator=gen, device=dev) * 3
-    q, s = kq.quantize_cuda(x, GROUP)
-    pq, ps = kq.quantize_torch(x, GROUP)
-    _expect(torch.equal(q, pq) and _same_bits(s, ps), "quantize differs on the timed inputs")
-    out["quantize"] = _timed("quantize", lambda: kq.quantize_cuda(x, GROUP),
-                             lambda: kq.quantize_torch(x, GROUP), None,
-                             4 * p + p + 4 * groups, 6 * p, [p])
-    _expect(_same_bits(kq.dequantize_cuda(q, s, GROUP), kq.dequantize_torch(q, s, GROUP)),
-            "dequantize differs on the timed inputs")
-    qg = q.view(groups, GROUP)
-    _expect(_same_bits(torch.mul(qg, s[:, None]).reshape(-1), kq.dequantize_torch(q, s, GROUP)),
+    xs = [torch.randn((P_STACK,), generator=gen, device=dev) * 3 for _ in range(8)]
+    for x in xs:
+        q, s = ops.quantize(x)
+        pq, ps = kq.quantize_torch(x, GROUP, p)
+        _expect(torch.equal(q, pq) and _same_bits(s, ps), "quantize differs on the timed inputs")
+    turn = itertools.cycle(xs)
+    kern = lambda: ops.quantize(next(turn))  # noqa: E731
+    out["quantize"] = _timed("quantize", kern, lambda: kq.quantize_torch(next(turn), GROUP, p),
+                             None, 4 * P_STACK + p + 4 * groups, 6 * P_STACK, [P_STACK])
+    _one_kernel_a_call("ops.quantize", _count_device_kernels("ops.quantize", kern, [P_STACK],
+                                                             calls=20), "quantize_kernel", 20)
+    codec = Int8UploadCodec()
+    _count_device_kernels("Int8UploadCodec.encode", lambda: codec.encode(next(turn)),
+                          [P_STACK], calls=5)
+    print(json.dumps({"phase": "kernels", "diagnostic": "ops.quantize host us per call",
+                      "shape": [P_STACK], "host_us": _host_us(kern)}), flush=True)
+    qs = [kq.quantize_cuda(x, GROUP, p) for x in xs]
+    del xs, turn, kern
+    for q, s in qs:
+        _expect(_same_bits(kq.dequantize_cuda(q, s, GROUP), kq.dequantize_torch(q, s, GROUP)),
+                "dequantize differs on the timed inputs")
+    qg = qs[0][0].view(groups, GROUP)
+    _expect(_same_bits(torch.mul(qg, qs[0][1][:, None]).reshape(-1),
+                       kq.dequantize_torch(*qs[0], GROUP)),
             "the library dequantize differs from the plain version")
-    out["dequantize"] = _timed("dequantize", lambda: kq.dequantize_cuda(q, s, GROUP),
-                               lambda: kq.dequantize_torch(q, s, GROUP),
-                               lambda: torch.mul(qg, s[:, None]),
+    turn = itertools.cycle(qs)
+
+    def library():
+        q, s = next(turn)
+        return torch.mul(q.view(groups, GROUP), s[:, None])
+
+    kern = lambda: kq.dequantize_cuda(*next(turn), GROUP)  # noqa: E731
+    out["dequantize"] = _timed("dequantize", kern,
+                               lambda: kq.dequantize_torch(*next(turn), GROUP), library,
                                p + 4 * groups + 4 * p, p, [p])
-    del x, q, s, pq, ps, qg
+    print(json.dumps({"phase": "kernels", "diagnostic": "dequantize_cuda host us per call",
+                      "shape": [p], "host_us": _host_us(kern)}), flush=True)
+    del qs, qg, turn, kern
     aq, ascale, w = _q8_inputs(N_MAIN, p, gen, dev)
     m = torch.ones((N_MAIN,), device=dev)
     kern = lambda: kfu.masked_fedavg_q8_cuda(aq, ascale, w, m)  # noqa: E731
@@ -758,12 +849,15 @@ def time_int8_kernels(kq, kfu, dev, errs: dict) -> dict:
 
 def _trimmed_rows(n: int, p: int, gen: torch.Generator, dev, dead: bool) -> tuple:
     """Normal rows with a duplicated and a negated row, a block of all-equal
-    columns and, when ``dead``, every third row dead holding NaN or 1e30."""
+    columns, a column of ±0 and, when ``dead``, every third row dead holding
+    NaN or 1e30."""
     rows = torch.randn((n, p), generator=gen, device=dev) * 3
     if n >= 4:
         rows[n // 2] = rows[0]
         rows[n // 2 + 1] = -rows[1]
     rows[:, : p // 8] = 0.5
+    rows[::2, p // 8] = 0.0
+    rows[1::2, p // 8] = -0.0
     m = torch.ones((n,), device=dev)
     if dead:
         m[2::3] = 0.0
@@ -773,18 +867,24 @@ def _trimmed_rows(n: int, p: int, gen: torch.Generator, dev, dead: bool) -> tupl
 
 
 def check_trimmed_mean(krob, dev) -> float:
-    """The masked trimmed mean against its plain version: N from 3 to 1000
-    with several ``trim_k`` each (``2·trim_k = N − 1`` included), every mask
-    all-valid and with dead garbage rows; atol 1e-5, plus rtol 1e-5 at full
-    width.  (1000, 10,174,464) is left out: that arena alone is 40 GB and the
-    plain sort needs three times as much.  Returns the worst f32 error."""
+    """The masked trimmed mean against its plain version: N from 2 to 1000,
+    at every size where the network's template changes (4, 8, 16, 32, 64)
+    and on both sides of it, and past 64 where the rank-select takes over,
+    with ``trim_k`` at 0 or 1, middling and its largest (``2·trim_k = N − 1``
+    for odd N); every mask all-valid and with dead garbage rows; f32, and bf16
+    at a subset; full width at N = 3, 8, 16, 32 and 64 (at N = 64 the row
+    offsets pass 2^31 bytes); atol 1e-5, plus rtol 1e-5 at full width.
+    (1000, 10,174,464) is left out: that arena alone is 40 GB and the plain
+    sort needs three times as much.  Returns the worst f32 error."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    grid = {3: (0, 1), 8: (1, 3), 16: (1, 4, 7), 32: (1, 8, 15), 64: (1, 16, 31),
-            1000: (1, 150, 499)}
+    grid = {2: (0,), 3: (0, 1), 4: (0, 1), 5: (1, 2), 8: (1, 3), 16: (0, 4, 7), 17: (1, 4, 8),
+            31: (0, 8, 15), 32: (1, 8, 15), 33: (1, 8, 16), 63: (0, 16, 31), 64: (1, 16, 31),
+            65: (1, 16, 32), 1000: (1, 150, 499)}
+    full_width = (3, 8, 16, 32, 64)
     worst = 0.0
     for n, trims in grid.items():
         for p in (1024, 5000, P_MAIN):
-            if n == 1000 and p == P_MAIN:
+            if p == P_MAIN and n not in full_width:
                 continue
             rtol = 1e-5 if p == P_MAIN else 0.0
             for dead in (False, True):
@@ -800,10 +900,12 @@ def check_trimmed_mean(krob, dev) -> float:
                                   "trim_k": list(trims), "dead_rows": dead,
                                   "max_abs_err": worst, "atol": 1e-5, "rtol": rtol}), flush=True)
                 del rows
-    for n, p in ((8, 5000), (32, P_MAIN)):  # bf16 rows, widened exactly to f32
+    # bf16 rows, widened exactly to f32
+    for n, p in ((4, 5000), (5, 5000), (8, 5000), (17, 5000), (33, 5000), (64, 5000),
+                 (65, 5000), (32, P_MAIN), (64, P_MAIN)):
         rows, m = _trimmed_rows(n, p, gen, dev, dead=True)
         rows = rows.to(torch.bfloat16)
-        for trim_k in (1, n // 4):
+        for trim_k in sorted({1, n // 4, (n - 1) // 2}):
             err = _close(krob.masked_trimmed_mean_cuda(rows, m, trim_k),
                          krob.masked_trimmed_mean_torch(rows, m, trim_k), 1e-5, atol=1e-5,
                          what=f"masked_trimmed_mean bf16 {n}x{p} trim_k={trim_k}")
@@ -824,9 +926,23 @@ def check_trimmed_mean(krob, dev) -> float:
         _expect(False, "masked_trimmed_mean: 2*trim_k >= N must raise ValueError")
     except ValueError:
         pass
+    # NaN (either sign) in live rows and +inf meeting -inf: NaN last, as the
+    # sort on the host puts it (torch.sort on the card puts a negative NaN first).
+    rows[2::3] = float("nan")
+    rows[4::5] = -float("nan")
+    rows[1, :500] = float("inf")
+    rows[3, 300:900] = -float("inf")
+    for trim_k in (1, 3):
+        for mask in (torch.ones((8,), device=dev), two):
+            got = krob.masked_trimmed_mean_cuda(rows, mask, trim_k).cpu()
+            want = krob.masked_trimmed_mean_torch(rows.cpu(), mask.cpu(), trim_k)
+            same = ((got == want) | ((got - want).abs() <= 1e-5)
+                    | (torch.isnan(got) & torch.isnan(want)))
+            _expect(bool(same.all()), f"masked_trimmed_mean NaN rows trim_k={trim_k}: "
+                                      f"{int((~same).sum())} columns differ")
     print(json.dumps({"phase": "kernels", "masked_trimmed_mean": "degenerate",
                       "fallback_mean": True, "empty_mask_zeros": True,
-                      "trim_k_value_error": True}), flush=True)
+                      "trim_k_value_error": True, "nan_in_live_rows": True}), flush=True)
     return worst
 
 
@@ -838,15 +954,16 @@ def _sorting_network_size(n: int) -> int:
 
 
 def time_trimmed_mean(krob, dev, errs: dict) -> dict:
-    """The rank-select kernel on the main path's (32, 10,174,464) f32 arena at
-    ``trim_k`` 8 (the main leg's, the row's numbers) and 1.  Its bound is the
-    larger of the bytes (the arena read once, the output written once) and
-    the least operations the function needs, not this kernel's design: per
-    column a sorting network's compare-exchanges (a min and a max each) and
-    the band's adds, over 67 TFLOP/s.  The rank-select's own 2·N² compare
-    and add instructions per column, at the FP32 issue rate, print apart as
-    a diagnostic.  No single PyTorch call computes a masked trimmed mean, so
-    ``library_ms`` is null."""
+    """The kernel on the main path's (32, 10,174,464) f32 arena at ``trim_k``
+    8 (the main leg's, the row's numbers) and 1, and the device kernels the
+    profiler sees per call (must be 1).  Its bound is the larger of the bytes
+    (the arena read once, the output written once) and the least operations
+    the function needs: per column a sorting network's compare-exchanges (a
+    min and a max each) and the band's adds, over 67 TFLOP/s.  The network's
+    own instructions a column (the min and max of each compare-exchange, a
+    load and a predicated add a row) print apart as a diagnostic, at the FP32
+    pipes' issue rate and at half of it.  No single PyTorch call computes a
+    masked trimmed mean, so ``library_ms`` is null."""
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = torch.randn((N_MAIN, P_MAIN), generator=gen, device=dev) * 3
     m = torch.ones((N_MAIN,), device=dev)
@@ -861,10 +978,14 @@ def time_trimmed_mean(krob, dev, errs: dict) -> dict:
                              N_MAIN * P_MAIN * 4 + 4 * P_MAIN + 4 * N_MAIN,
                              (2 * _sorting_network_size(N_MAIN) + N_MAIN) * P_MAIN,
                              [N_MAIN, P_MAIN])
-    rank_select = 2 * N_MAIN * N_MAIN * P_MAIN
-    print(json.dumps({"phase": "kernels", "masked_trimmed_mean": "rank_select_diagnostic",
-                      "instructions": rank_select,
-                      "ms_at_fp32_issue_rate": rank_select / F32_ISSUE_PER_S * 1e3}), flush=True)
+        names = _count_device_kernels(f"masked_trimmed_mean trim_k={trim_k}", kern,
+                                      [N_MAIN, P_MAIN], calls=20)
+        _one_kernel_a_call("masked_trimmed_mean", names, "network_kernel", 20)
+    network = (2 * _sorting_network_size(N_MAIN) + 2 * N_MAIN) * P_MAIN
+    print(json.dumps({"phase": "kernels", "masked_trimmed_mean": "network_diagnostic",
+                      "instructions": network,
+                      "ms_at_fp32_issue_rate": network / F32_ISSUE_PER_S * 1e3,
+                      "ms_at_half_rate": 2 * network / F32_ISSUE_PER_S * 1e3}), flush=True)
     del rows
     torch.cuda.empty_cache()
     return {"masked_trimmed_mean": out[TRIM_K]}

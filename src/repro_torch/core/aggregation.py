@@ -19,7 +19,7 @@ the plain dequantize-``where``-einsum on the host.
 
 The robust rules are order statistics, weight-blind by design.
 :func:`masked_trimmed_mean` reduces through ``ops.masked_trimmed_mean``: the
-hand-written rank-select kernel on the card (``kernels/csrc/robust.cu``), the
+hand-written sorting-network kernel on the card (``kernels/csrc/robust.cu``), the
 plain sort-then-trim on the host.  The median rules and the stack store's
 :func:`trimmed_mean` are ``jnp.sort``/``jnp.median`` in the reference, outside
 any Pallas kernel, so they stay ``torch.sort`` here (never ``torch.median``,

@@ -17,7 +17,7 @@ plumbing:
   over the ``(n_max, P)`` arena, which on the card is a hand-written Hopper
   kernel (the fused dequant-into-aggregate on an int8 arena); or, under
   ``aggregation_rule="trimmed_mean"`` / ``"median"``, the robust order
-  statistic (the trimmed mean through the hand-written rank-select kernel,
+  statistic (the trimmed mean through the hand-written sorting-network kernel,
   the median through ``torch.sort``); then the server optimizer, a device
   sync and the commit.
 

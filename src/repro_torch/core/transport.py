@@ -227,14 +227,15 @@ class Int8UploadCodec:
 
         Only the ``ceil(P/group)`` informative scales go on the wire; trailing
         pure-padding groups (``q == 0``, scale 1.0) are re-synthesized by the
-        decoder from ``P`` alone.  One device-to-host transfer.
+        decoder from ``P`` alone.  ``ops.quantize`` writes ``q`` and the
+        scales into one buffer in the wire's layout, so the wire is its
+        prefix: one kernel and one device-to-host transfer.
         """
         flat = torch.as_tensor(buffer).reshape(-1).to(torch.float32)
         n = int(flat.shape[0])
         q, scales = ops.quantize(flat, group=self.group, block_rows=self._block_rows(n))
         n_scales = quant.wire_layout(n, self.group, self.block_rows)[1]
-        wire = torch.cat([q.view(torch.uint8), scales[:n_scales].view(torch.uint8)])
-        return wire.cpu().numpy()
+        return quant.wire_prefix(q, scales, n_scales).cpu().numpy()
 
     def _checked_layout(self, payload: np.ndarray, num_elements: int) -> tuple[int, int]:
         """Validate payload size against the wire layout; return (n_q, n_scales)."""

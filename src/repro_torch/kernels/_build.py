@@ -6,7 +6,7 @@ compiled by ``nvcc`` straight into one shared library and bound with
 takes minutes.  The sources are ``fedavg.cu`` (masked FedAvg),
 ``quantize.cu`` (int8 quantize and dequantize), ``fused_agg.cu`` (the
 dequant-into-aggregate) and ``robust.cu`` (the masked trimmed mean's
-rank-select).  Each source compiles in its own ``nvcc`` process, all started
+sorting network).  Each source compiles in its own ``nvcc`` process, all started
 together, and one more links the objects.  The build runs at first use, on
 the machine with the card, into ``build/repro_torch_kernels/`` at the
 repository root, keyed on a hash of the sources and flags: a changed source
@@ -46,8 +46,8 @@ _SIGNATURES = {
     # arena, dtype code, row stride, raw weights, mask or NULL, out, N, P, then the
     # launch plan (grid, tile bytes, stages, dynamic shared memory bytes), stream
     "repro_fedavg": [_P, _I, _L, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
-    # x, q, scales, n_groups, group, stream
-    "repro_quantize": [_P, _P, _P, _L, _I, _P],
+    # x, n, q, scales, n_groups, group, stream
+    "repro_quantize": [_P, _L, _P, _P, _L, _I, _P],
     # q, scales, out, n, group, stream
     "repro_dequantize": [_P, _P, _P, _L, _I, _P],
     # q, q row stride, scales, scales row stride, w_hat, mask, out, N, P, group, stream

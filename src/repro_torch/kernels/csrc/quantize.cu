@@ -24,15 +24,22 @@
 //
 // Bound on the card: both are single streaming passes with a handful of
 // operations per element, so HBM bytes bound them:
-//   quantize   (4P read + P + 4P/group written) / 3.35 TB/s
+//   quantize   (4n read + P + 4P/group written) / 3.35 TB/s
 //   dequantize (P + 4P/group read + 4P written) / 3.35 TB/s
 // (10,174,464 elements at group 256: 51.0 MB, ~15.2 us each).  The design:
+//   * quantize reads the unpadded (n,) row and writes the int8 wire layout
+//     of the padded (P,) row in one pass: q into the head of one buffer and
+//     every group's scale right after it, where the caller used to pad the
+//     row (a fill and a copy) and concatenate the wire (a third pass).
+//     Elements at n and beyond read as the pad's zeros, so a group past n
+//     gets scale 1.0 and q = 0, as the reference's pad gives.
 //   * quantize gives one warp to each group.  Each lane reads 8 consecutive
-//     f32 as two 16-byte loads, the warp takes the group's amax with a
-//     __shfl_xor butterfly, and each lane writes its 8 int8 as one 8-byte
-//     store.  A group wider than 256 loops; the second pass over it re-reads
-//     the values the first pass just brought into L1, so HBM sees each byte
-//     once;
+//     f32 as two 16-byte loads (scalar loads for the one 8-value chunk that
+//     straddles n), the warp takes the group's amax with a __shfl_xor
+//     butterfly, and each lane writes its 8 int8 as one 8-byte store.  Up to
+//     group 256 each lane's 8 values stay in registers from the load to the
+//     store; a wider group loops over its chunks twice, the second pass
+//     re-reading what the first just brought into L1;
 //   * dequantize gives each thread 8 consecutive values (one 8-byte load,
 //     two 16-byte stores) that lie in one group, so one scale load each.
 //
@@ -65,22 +72,58 @@ __device__ __forceinline__ uint32_t quant1(float v, float scale) {
   return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(static_cast<int>(r))));
 }
 
+// One 8-value chunk at x[i0, i0 + 8), zeros at n and beyond.  x is 16-byte
+// aligned and i0 a multiple of 8, so a whole chunk is two aligned loads.
+__device__ __forceinline__ void load8(const float* __restrict__ x, int64_t n, int64_t i0,
+                                      float (&v)[8]) {
+  if (i0 + 8 <= n) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(x + i0));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(x + i0 + 4));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = i0 + j < n ? __ldg(x + i0 + j) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ float amax8(float amax, const float (&v)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) amax = nanmax(amax, fabsf(daz(v[j])));
+  return amax;
+}
+
+__device__ __forceinline__ void store8(int8_t* __restrict__ q, const float (&v)[8],
+                                       float scale) {
+  uint2 packed;
+  packed.x = quant1(v[0], scale) | (quant1(v[1], scale) << 8) |
+             (quant1(v[2], scale) << 16) | (quant1(v[3], scale) << 24);
+  packed.y = quant1(v[4], scale) | (quant1(v[5], scale) << 8) |
+             (quant1(v[6], scale) << 16) | (quant1(v[7], scale) << 24);
+  *reinterpret_cast<uint2*>(q) = packed;
+}
+
 __global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+quantize_kernel(const float* __restrict__ x, int64_t n, int8_t* __restrict__ q,
                 float* __restrict__ scales, int64_t n_groups, int group) {
   const int64_t g = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (g >= n_groups) return;  // g is uniform across the warp: it leaves whole
   const int chunks = group >> 3;
-  const float* xg = x + g * group;
+  const int64_t base = g * group;
 
+  float v[8];
   float amax = 0.0f;
-  for (int c = lane; c < chunks; c += 32) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(xg + 8 * c));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(xg + 8 * c + 4));
-    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) amax = nanmax(amax, fabsf(daz(v[j])));
+  if (chunks <= 32) {  // one chunk a lane, kept in registers
+    if (lane < chunks) {
+      load8(x, n, base + 8 * lane, v);
+      amax = amax8(amax, v);
+    }
+  } else {
+    for (int c = lane; c < chunks; c += 32) {
+      load8(x, n, base + 8 * c, v);
+      amax = amax8(amax, v);
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -92,16 +135,13 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
     if (scale < FLT_MIN) scale = 0.0f;
   }
 
-  int8_t* qg = q + g * group;
-  for (int c = lane; c < chunks; c += 32) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(xg + 8 * c));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(xg + 8 * c + 4));
-    uint2 packed;
-    packed.x = quant1(a.x, scale) | (quant1(a.y, scale) << 8) |
-               (quant1(a.z, scale) << 16) | (quant1(a.w, scale) << 24);
-    packed.y = quant1(b.x, scale) | (quant1(b.y, scale) << 8) |
-               (quant1(b.z, scale) << 16) | (quant1(b.w, scale) << 24);
-    *reinterpret_cast<uint2*>(qg + 8 * c) = packed;
+  if (chunks <= 32) {
+    if (lane < chunks) store8(q + base + 8 * lane, v, scale);
+  } else {
+    for (int c = lane; c < chunks; c += 32) {
+      load8(x, n, base + 8 * c, v);
+      store8(q + base + 8 * c, v, scale);
+    }
   }
   if (lane == 0) scales[g] = scale;
 }
@@ -128,18 +168,20 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// x (n_groups*group,) f32 -> q int8 (same length), scales (n_groups,) f32.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int repro_quantize(const void* x, void* q, void* scales, long long n_groups,
-                              int group, void* stream) {
-  if (n_groups < 0 || group < 8 || group % 8 || !aligned16(x) || !aligned16(q))
+// x (n,) f32, read as zeros from n to n_groups * group -> q int8
+// (n_groups * group,), scales (n_groups,) f32.  Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int repro_quantize(const void* x, long long n, void* q, void* scales,
+                              long long n_groups, int group, void* stream) {
+  if (n_groups < 0 || group < 8 || group % 8 || n < 0 || n > n_groups * group ||
+      (n > 0 && !aligned16(x)) || !aligned16(q) || reinterpret_cast<uintptr_t>(scales) % 4)
     return cudaErrorInvalidValue;
   if (n_groups == 0) return cudaSuccess;
   const long long blocks = (n_groups * 32 + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   quantize_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(scales),
+      static_cast<const float*>(x), n, static_cast<int8_t*>(q), static_cast<float*>(scales),
       n_groups, group);
   return cudaGetLastError();
 }

@@ -28,10 +28,11 @@ __all__ = ["fedavg", "masked_fedavg", "masked_fedavg_q8", "masked_trimmed_mean",
 
 
 def _route(x: torch.Tensor) -> str:
-    kind = x.device.type
-    if kind not in ("cuda", "cpu"):
+    if x.is_cuda:
+        return "cuda"
+    if x.device.type != "cpu":
         raise ValueError(f"no kernel route for device {x.device}; use cuda or cpu")
-    return kind
+    return "cpu"
 
 
 def fedavg(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -86,14 +87,19 @@ def quantize(
     block_rows: int = _quant.DEFAULT_BLOCK_ROWS,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(P,)`` -> ``(q int8, scales f32)``, zero-padded to a ``group * block_rows``
-    multiple as the reference's kernel requires; the caller keeps ``P``."""
-    x = x.reshape(-1).to(torch.float32)
+    multiple as the reference's kernel requires; the caller keeps ``P``.
+
+    The row is read unpadded: the kernel (or the plain version) reads the pad
+    as zeros and writes ``q`` and every group's scale into one buffer in the
+    int8 wire's layout, whose views they are (``quantize.wire_prefix``).
+    """
+    if x.ndim != 1 or x.dtype != torch.float32:
+        x = x.reshape(-1).to(torch.float32)
     tile = group * block_rows
-    if x.shape[0] % tile:
-        x = torch.nn.functional.pad(x, (0, tile - x.shape[0] % tile))
+    n_padded = -(-x.shape[0] // tile) * tile
     if _route(x) == "cuda":
-        return _quant.quantize_cuda(x, group)
-    return _quant.quantize_torch(x, group)
+        return _quant.quantize_cuda(x, group, n_padded)
+    return _quant.quantize_torch(x, group, n_padded)
 
 
 def dequantize(

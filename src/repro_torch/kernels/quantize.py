@@ -7,6 +7,11 @@ an f32 row).  The packed ``(P,)`` buffer is viewed as ``(P/group, group)``
 rows; each group gets a symmetric scale ``max|x|/127``.  The CUDA kernels are
 in ``csrc/quantize.cu``; its header gives the bound and the design.
 
+Quantize reads an unpadded ``(n,)`` row as zero-padded to ``P`` and writes
+``q`` and every group's scale into one buffer laid out as the int8 wire (the
+``P`` int8 values, then the ``P/group`` f32 scales); ``q`` and the scales
+are views of it, and :func:`wire_prefix` is the wire an upload sends.
+
 The host layout helpers (:func:`effective_block_rows`, :func:`wire_layout`,
 :func:`scales_padding`) are the reference's word for word: they fix the
 wire bytes, so both packages emit identical int8 envelopes.
@@ -36,7 +41,7 @@ import torch
 from repro_torch.kernels._build import count_launch, load_library
 __all__ = [
     "DEFAULT_GROUP", "DEFAULT_BLOCK_ROWS", "effective_block_rows", "wire_layout",
-    "scales_padding", "quantize_torch", "dequantize_torch", "quantize_cuda",
+    "scales_padding", "wire_prefix", "quantize_torch", "dequantize_torch", "quantize_cuda",
     "dequantize_cuda",
 ]
 
@@ -101,17 +106,55 @@ def _check_groups(n: int, group: int, what: str) -> int:
     return n // group
 
 
+def _padded_groups(n: int, n_padded: int | None, group: int) -> tuple[int, int]:
+    """``(n_padded, groups)`` of a row of ``n`` elements read as zero-padded to
+    ``n_padded`` (``n`` when ``None``), a whole number of groups."""
+    if n_padded is None:
+        n_padded = n
+    elif n_padded < n:
+        raise ValueError(f"cannot pad {n} elements to {n_padded}")
+    return n_padded, _check_groups(n_padded, group, "x")
+
+
+def _wire_buffer(
+    like: torch.Tensor, n_padded: int, groups: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(q, scales)``: views of one new buffer on ``like``'s device laid out
+    as the int8 wire, ``n_padded`` int8 values then ``groups`` f32 scales
+    (``n_padded`` is a whole number of groups, so a multiple of 4)."""
+    q, scales = like.new_empty((n_padded // 4 + groups,), dtype=torch.float32).split_with_sizes(
+        [n_padded // 4, groups])
+    return q.view(torch.int8), scales
+
+
+def wire_prefix(q: torch.Tensor, scales: torch.Tensor, n_scales: int) -> torch.Tensor:
+    """The int8 wire of a quantized row, without a copy: ``q``'s bytes then
+    its first ``n_scales`` scales, as a uint8 view of the one buffer that
+    :func:`quantize_torch` and :func:`quantize_cuda` write."""
+    one_buffer = (q.untyped_storage().data_ptr() == scales.untyped_storage().data_ptr()
+                  and scales.data_ptr() == q.data_ptr() + q.shape[0])
+    if not one_buffer or not 0 <= n_scales <= scales.shape[0]:
+        raise ValueError("q and its scales are not one wire buffer")
+    return q.view(torch.uint8).as_strided((q.shape[0] + 4 * n_scales,), (1,))
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the on-card yardstick)
 # ---------------------------------------------------------------------------
 
 
 def quantize_torch(
-    x: torch.Tensor, group: int = DEFAULT_GROUP
+    x: torch.Tensor, group: int = DEFAULT_GROUP, n_padded: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(P,)`` f32 -> ``(q int8 (P,), scales f32 (P/group,))``, plain torch."""
-    rows = _check_groups(x.shape[0], group, "x")
-    xg = x.to(torch.float32).reshape(rows, group)
+    """``(n,)`` f32 -> ``(q int8 (P,), scales f32 (P/group,))``, plain torch.
+
+    ``x`` is read as zero-padded to ``P = n_padded`` (``n`` when ``None``);
+    ``q`` and ``scales`` are views of one buffer in the wire's layout
+    (:func:`wire_prefix`).
+    """
+    n_padded, rows = _padded_groups(x.shape[0], n_padded, group)
+    xg = torch.nn.functional.pad(x.to(torch.float32), (0, n_padded - x.shape[0]))
+    xg = xg.reshape(rows, group)
     xg = torch.where(xg.abs() < FLT_MIN, 0.0, xg)
     amax = xg.abs().amax(dim=1, keepdim=True)
     scale = amax * INV_127.to(x.device)
@@ -119,7 +162,10 @@ def quantize_torch(
     scale = torch.where(amax > 0, scale, 1.0)
     q = torch.round(xg / scale)
     q = torch.where(torch.isnan(q), 0.0, q.clamp(-127.0, 127.0))
-    return q.to(torch.int8).reshape(-1), scale[:, 0]
+    q_out, s_out = _wire_buffer(x, n_padded, rows)
+    q_out.copy_(q.to(torch.int8).reshape(-1))
+    s_out.copy_(scale[:, 0])
+    return q_out, s_out
 
 
 def dequantize_torch(
@@ -138,7 +184,7 @@ def dequantize_torch(
 
 def _aligned(t: torch.Tensor, what: str, dtype: torch.dtype) -> torch.Tensor:
     """A contiguous 1-D CUDA tensor of ``dtype`` on a 16-byte boundary."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"the CUDA kernel needs a CUDA tensor for {what}, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
@@ -148,26 +194,38 @@ def _aligned(t: torch.Tensor, what: str, dtype: torch.dtype) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _launch(entry, t: torch.Tensor, *args) -> int:
+    """``entry(*args, stream)`` on the current stream of ``t``'s device;
+    returns its rc.
+
+    A 10 MB row's kernel takes about 20 us on the card, so the host's share
+    of each call counts: the device's context is entered only when it is not
+    the current device, and the stream is read as its raw handle, not as a
+    ``Stream`` object."""
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def quantize_cuda(
-    x: torch.Tensor, group: int = DEFAULT_GROUP
+    x: torch.Tensor, group: int = DEFAULT_GROUP, n_padded: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Blockwise int8 quantization on the card through the hand-written kernel.
 
-    ``x`` is a ``(P,)`` f32 CUDA tensor with ``P % group == 0``
-    (``ops.quantize`` pads).  Raises on anything else or a failed launch.
+    ``x`` is an ``(n,)`` f32 CUDA tensor, read as zero-padded to
+    ``P = n_padded`` (``n`` when ``None``), a whole number of groups.  One
+    launch writes ``q`` and every group's scale into one buffer in the wire's
+    layout; they come back as views of it (:func:`wire_prefix`).  Raises on
+    anything else or a failed launch.
     """
     x = _aligned(x, "x", torch.float32)
-    rows = _check_groups(x.shape[0], group, "x")
-    q = torch.empty((x.shape[0],), dtype=torch.int8, device=x.device)
-    scales = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    lib = load_library().lib
-    with torch.cuda.device(x.device):
-        rc = lib.repro_quantize(x.data_ptr(), q.data_ptr(), scales.data_ptr(), rows, group,
-                                _stream(x.device))
+    n = x.shape[0]
+    n_padded, rows = _padded_groups(n, n_padded, group)
+    q, scales = _wire_buffer(x, n_padded, rows)
+    rc = _launch(load_library().lib.repro_quantize, x, x.data_ptr(), n, q.data_ptr(),
+                 scales.data_ptr(), rows, group)
     if rc != 0:
         raise RuntimeError(f"repro_quantize launch failed with cudaError {rc}")
     count_launch(quantize_cuda)
@@ -180,17 +238,16 @@ def dequantize_cuda(
     """``q * scale[group]`` on the card through the hand-written kernel."""
     q = _aligned(q, "q", torch.int8)
     scales = _aligned(scales, "scales", torch.float32)
-    rows = _check_groups(q.shape[0], group, "q")
-    if scales.shape[0] != rows or scales.device != q.device:
+    n = q.shape[0]
+    rows = _check_groups(n, group, "q")
+    if scales.shape[0] != rows or scales.get_device() != q.get_device():
         raise ValueError(
             f"got {scales.shape[0]} scales on {scales.device} for {rows} groups of "
             f"{group} on {q.device}"
         )
-    out = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
-    lib = load_library().lib
-    with torch.cuda.device(q.device):
-        rc = lib.repro_dequantize(q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                                  q.shape[0], group, _stream(q.device))
+    out = q.new_empty((n,), dtype=torch.float32)
+    rc = _launch(load_library().lib.repro_dequantize, q, q.data_ptr(), scales.data_ptr(),
+                 out.data_ptr(), n, group)
     if rc != 0:
         raise RuntimeError(f"repro_dequantize launch failed with cudaError {rc}")
     count_launch(dequantize_cuda)

@@ -3,17 +3,20 @@
 Replaces the reference's TPU kernel ``repro/kernels/robust.py``
 ``masked_trimmed_mean_pallas`` (the byzantine-robust reduction, once per
 sync round under ``aggregation_rule="trimmed_mean"``).  The CUDA kernel
-(``csrc/robust.cu``) rank-selects column by column; its header gives the
-bound (the ``N^2`` compare-and-count pairs per column, on the CUDA cores)
-and what the design does about it.  The TPU tiling helpers (the VMEM block
-choice and the pad in the reference's ``ops.py``) are not ported: the kernel
-takes any ``P``.
+(``csrc/robust.cu``) sorts each column in registers with Batcher's odd-even
+merge network for ``N <= 64`` and sums the band in sorted order; past 64
+rows it rank-selects.  Its header gives the bound (the bytes) and what the
+design does about it.  :func:`sorting_network` is the network's loop nest
+as the CUDA template runs it, so the CPU tests pin its compare-exchanges
+where no card is present.  The TPU tiling helpers (the VMEM block choice and
+the pad in the reference's ``ops.py``) are not ported: the kernel takes any
+``P``.
 
 Beside the kernel wrapper sits its plain PyTorch version, the sort-then-trim
 of ``repro/kernels/ref.py``: the CPU path, and the yardstick ``chip_smoke.py``
-holds the kernel against on the card.  The two sum the band in different
-orders (row order in the kernel, sorted order in the sort), so they agree to
-float rounding, not bit for bit.
+holds the kernel against on the card.  Both sum the band in sorted order, up
+to the torch reduction's own grouping (the rank-select past 64 rows sums in
+row order), so they agree to float rounding, not bit for bit.
 
 The kernel wrapper counts its launches in a plain integer
 (``masked_trimmed_mean_cuda.launches``), incremented only where the kernel is
@@ -26,9 +29,28 @@ import torch
 
 from repro_torch.kernels._build import count_launch, load_library
 
-__all__ = ["masked_trimmed_mean_torch", "masked_trimmed_mean_cuda"]
+__all__ = ["sorting_network", "masked_trimmed_mean_torch", "masked_trimmed_mean_cuda"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def sorting_network(np_: int) -> list[tuple[int, int]]:
+    """Batcher's odd-even merge sort on ``np_`` (a power of two) inputs: its
+    compare-exchanges ``(lo, hi)`` in order, by the loop nest of
+    ``csrc/robust.cu``'s ``network_walk`` (each puts the smaller value at
+    ``lo``)."""
+    pairs = []
+    p = 1
+    while p < np_:
+        k = p
+        while k >= 1:
+            for j in range(k % p, np_ - k, 2 * k):
+                for i in range(min(k, np_ - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return pairs
 
 
 def _check_trim(trim_k: int, n: int) -> None:

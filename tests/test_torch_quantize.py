@@ -132,6 +132,38 @@ def test_ops_shape_errors():
         tops.masked_fedavg_q8(q, torch.ones((3, 7)), torch.ones(3), torch.ones(3))
 
 
+@pytest.mark.parametrize("n", [1, 255, 257, 65_537, 100_000, 100_225])
+def test_quantize_writes_the_wire_layout(n):
+    """``ops.quantize`` returns ``q`` and the scales as views of one buffer
+    laid out as the int8 wire, whose prefix is the reference's wire; the
+    whole buffer is the reference's ``q`` then all its scales."""
+    x = (np.random.default_rng(n).normal(size=n) * 2).astype(np.float32)
+    n_padded, n_scales, nbytes = tquant.wire_layout(n)
+    q, s = tops.quantize(torch.from_numpy(x), block_rows=tquant.effective_block_rows(n))
+    assert q.shape == (n_padded,) and s.shape == (n_padded // tquant.DEFAULT_GROUP,)
+    assert q.untyped_storage().data_ptr() == s.untyped_storage().data_ptr()
+    assert s.data_ptr() == q.data_ptr() + n_padded
+    wire = tquant.wire_prefix(q, s, n_scales)
+    assert wire.dtype == torch.uint8 and wire.shape == (nbytes,)
+    je = jtransport.Channel(upload_codec="int8").upload(jnp.asarray(x))
+    assert wire.numpy().tobytes() == je.payload.tobytes()
+    jq, js = jops.quantize(jnp.asarray(x))
+    tq, ts = tops.quantize(torch.from_numpy(x))
+    whole = tquant.wire_prefix(tq, ts, ts.shape[0]).numpy().tobytes()
+    assert whole == np.asarray(jq).tobytes() + np.asarray(js).tobytes()
+
+
+def test_wire_prefix_refuses_separate_buffers():
+    q = torch.zeros(256, dtype=torch.int8)
+    with pytest.raises(ValueError, match="not one wire buffer"):
+        tquant.wire_prefix(q, torch.ones(1), 1)
+    q, s = tquant.quantize_torch(torch.ones(300), n_padded=512)
+    with pytest.raises(ValueError, match="not one wire buffer"):
+        tquant.wire_prefix(q, s, 3)
+    with pytest.raises(ValueError, match="cannot pad 300 elements to 256"):
+        tquant.quantize_torch(torch.ones(300), n_padded=256)
+
+
 @pytest.mark.parametrize("n", [1, 255, 257, 65_537, 100_000])
 def test_int8_codec_wire_bytes_match_reference(n):
     rng = np.random.default_rng(n)
