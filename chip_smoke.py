@@ -43,20 +43,46 @@ nothing of the JAX package.  Phases, each printing its own lines:
              ``sign_flip`` adversaries, one dispatch worker so arrival order
              is fixed) under ``trimmed_mean`` and ``median`` (global buffer
              rtol 1e-4 / atol 1e-5; the adversarial, clipped, rejected and
-             quarantine counters equal);
-5. main    — housing-mlp-10m, 32 learners, 3 sync rounds (2 in the stack and
-             int8_wire legs, to stay inside about 400 s), six legs:
-             ``launch/train.main`` (f32 arena, raw codec); the stack store
-             through ``Driver``/``FederationEnv`` with a lineage of two models
-             per learner; ``int8_arena`` (int8 uplink into the int8-resident
-             arena, fused reduce); ``int8_wire`` (int8 uplink decoded onto the
-             f32 arena); ``trimmed_mean`` (a ``Controller`` on a
+             quarantine counters equal); then the protocols beside sync, one
+             dispatch worker, no wall-clock timer: async on the f32 arena and
+             on the stack store, FedBuff (K = 3 of 4) on the int8 arena with
+             the int8 codec (the int8 bar), deadline cohorts and reputation
+             (fraction 0.5) on a ``FaultyChannel`` losing and duplicating
+             uploads (fault seed 7) — global buffer as above, every
+             ``engine.faults.*`` and ``engine.uploads.*`` counter equal;
+5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100, ten
+             legs and a diagnostic, each reached as users reach it, with
+             its launch counts zeroed just before it and read just after:
+             ``launch/train.main``
+             (f32 arena, raw codec); the stack store through
+             ``Driver``/``FederationEnv`` with a lineage of two models per
+             learner; ``int8_arena`` (int8 uplink into the int8-resident
+             arena, fused reduce); ``int8_wire`` (int8 uplink decoded onto
+             the f32 arena); ``trimmed_mean`` (a ``Controller`` on a
              ``FaultyChannel`` with 8 byzantine learners, ``trim_k=8``, built
-             as the reference's adversarial arm builds it; the sorting-network
-             kernel once per round); ``median`` (``FederationEnv(
-             aggregation_rule="median")`` through ``Driver``, faultless; no
-             hand kernel, ``torch.sort``).  Each leg's launch counts are
-             zeroed just before it and read just after.
+             as the reference's adversarial arm builds it; the
+             sorting-network kernel once per round); ``median``
+             (``FederationEnv(aggregation_rule="median")``, faultless;
+             ``torch.sort``) — arena at 3 rounds, the other five at 2;
+             ``semi_sync``
+             (``launch/train.main --protocol semi_sync``, 2 rounds; round
+             2's steps checked against the profiles); ``async``
+             (``--protocol async``, 32 community updates plus the legs in
+             flight at the end; some stale, the last update equal to its
+             plain replay, the final eval loss within 1% of the arena
+             leg's); ``buffered_async_int8`` (``Driver`` with
+             ``buffer_k=8`` on the int8 codec and arena, 4 updates plus the
+             legs in flight; 8 members an aggregate, every upload landed
+             quantized, every reduce fused); ``deadline_32`` (the
+             deadline leg below for one round at the default 32 dispatch
+             workers, its fires printed, not required); ``deadline_faults`` (a
+             ``Controller`` with ``DeadlineCohortProtocol`` and wall-clock
+             timers at half the arena leg's median ``train_round_s`` and
+             eight dispatch workers (a round's uploads come in waves), on a
+             ``FaultyChannel`` losing and duplicating uploads, 3 rounds;
+             the lost and duplicated counts equal the injector's fates for
+             the dispatched pairs, the deadline fired, every late upload
+             folded into the next round's reduce).
 
 A disagreement found in the kernels or check phases is printed and recorded,
 and the script goes on, so one call shows every fault; any recorded or
@@ -87,11 +113,22 @@ P_MAIN = 10_174_464  # housing-mlp-10m row, padded to the arena's 1024 alignment
 P_STACK = 10_174_081  # housing-mlp-10m params: the stack leg's unpadded rows
 N_MAIN = 32
 GROUP = 256
-ROUNDS = 3
-# The stack and int8_wire legs run 2 rounds, so the six legs stay inside
-# about 400 s of command time; every leg keeps its full width.
-SHORT_LEGS = ("stack", "int8_wire")
-SHORT_ROUNDS = 2
+# Rounds per round-based leg.  The stack, int8_wire, int8_arena,
+# trimmed_mean and median legs run 2 rounds (two is what keeps a lineage of
+# two models per learner in the stack leg and overwrites every arena row
+# once), so the legs stay inside 600 s of command time; every leg keeps its
+# full width.  ``deadline_32`` is a one-round diagnostic.
+LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 2, "int8_wire": 2, "trimmed_mean": 2,
+              "median": 2, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 3}
+ASYNC_UPDATES = 32  # the async leg's total_updates (one per learner)
+FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
+# The deadline_faults leg's dispatch workers.  With 32 (the default, one per
+# learner), a round's learners interleave on one interpreter and nearly all
+# upload in its last few percent (``arrival_s``), so a deadline at half the
+# round usually finds nothing arrived and is ignored; ``deadline_32`` runs
+# that setting for one round and prints what it did.  Eight run the round
+# in four waves, so half of it lands between the second and the third.
+DEADLINE_WORKERS = 8
 LOCAL_STEPS = 4
 BATCH = 100
 LR = 0.05
@@ -101,6 +138,7 @@ BYZANTINE = dict(seed=7, adversarial_fraction=0.15, adversarial_fates=("scale", 
 BYZ_COUNTERS = ("engine.faults.adversarial.scale", "engine.faults.adversarial.sign_flip",
                 "engine.uploads.clipped", "engine.uploads.rejected.nonfinite",
                 "engine.quarantine.entered")
+FAULTS = dict(seed=7, upload_loss_rate=0.1, upload_dup_rate=0.1)
 FAILURES: list[str] = []  # disagreements found by the kernels and check phases
 
 
@@ -206,39 +244,112 @@ def main() -> None:
                 f"check byzantine {rule}: no adversarial upload in {on_card}")
         print(json.dumps({"phase": "check", "byzantine": rule, "counters": on_card}),
               flush=True)
+    # The continuous and fault-enacting protocols: one dispatch worker fixes
+    # the arrival order, no wall-clock timer; the deadline is far beyond any
+    # predicted finish (prediction reads measured step times, which differ
+    # between the card and the host).
+    from repro_torch.core import (AsyncProtocol, BufferedAsyncProtocol,
+                                  DeadlineCohortProtocol, ReputationProtocol)
+
+    task = dict(local_steps=2, batch_size=BATCH, learning_rate=0.01)
+    protocol_checks = {
+        "async_arena": dict(protocol=AsyncProtocol(**task), learners=4, updates=6),
+        "async_stack": dict(protocol=AsyncProtocol(**task), learners=4, updates=6,
+                            store_mode="stack"),
+        "buffered_async_int8": dict(protocol=BufferedAsyncProtocol(buffer_k=3, **task),
+                                    learners=4, updates=2, upload_codec="int8",
+                                    arena_dtype="int8"),
+        "deadline_faults": dict(protocol=DeadlineCohortProtocol(
+            deadline_s=1e6, enforce_wall_clock=False, **task), learners=8, rounds=2,
+            faults=FAULTS),
+        "reputation_faults": dict(protocol=ReputationProtocol(fraction=0.5, **task),
+                                  learners=8, rounds=2, faults=FAULTS),
+    }
+    for name, kw in protocol_checks.items():
+        c_gpu, _ = run_controller(train, dev, lr=0.01, **kw)
+        c_cpu, _ = run_controller(train, torch.device("cpu"), lr=0.01, **kw)
+        g, h = c_gpu.global_buffer.cpu(), c_cpu.global_buffer
+        if kw.get("upload_codec") == "int8":
+            checks[name] = within_q8_bar(g, h, f"check {name}")
+        else:
+            checks[name] = _close(g, h, 1e-4, atol=1e-5, what=f"check {name}")
+        on_card, on_host = _engine_counters(c_gpu), _engine_counters(c_cpu)
+        _expect(on_card == on_host,
+                f"check {name}: counters {on_card} on the card, {on_host} on the host")
+        print(json.dumps({"phase": "check", "protocol": name, "counters": on_card,
+                          "model_version": c_gpu.telemetry.value("controller.model_version")}),
+              flush=True)
     print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
-    del d_gpu, d_cpu
+    del d_gpu, d_cpu, c_gpu, c_cpu
 
     # -- 5. main path ---------------------------------------------------------
-    full = ["--arch", "housing-mlp", "--size", "10m", "--learners", str(N_MAIN),
-            "--rounds", str(ROUNDS), "--local-steps", str(LOCAL_STEPS),
-            "--batch-size", str(BATCH), "--lr", str(LR), "--seed", "0",
-            "--device", "cuda"]
-    main_fed = dict(size="10m", learners=N_MAIN, rounds=ROUNDS, local_steps=LOCAL_STEPS,
-                    lr=LR)
-    short_fed = {**main_fed, "rounds": SHORT_ROUNDS}
+    def launcher(rounds: int, *extra: str) -> list[str]:
+        return ["--arch", "housing-mlp", "--size", "10m", "--learners", str(N_MAIN),
+                "--rounds", str(rounds), "--local-steps", str(LOCAL_STEPS),
+                "--batch-size", str(BATCH), "--lr", str(LR), "--seed", "0",
+                "--device", "cuda", *extra]
+
+    def fed(leg: str) -> dict:
+        return dict(size="10m", learners=N_MAIN, rounds=LEG_ROUNDS[leg],
+                    local_steps=LOCAL_STEPS, lr=LR)
+
+    train_round_s: dict[str, list[float]] = {}
+    first_step_s: dict[str, float] = {}  # each learner's first seconds_per_step
+
+    def deadline_leg(leg: str, workers: int):
+        # D: half the arena leg's median train_round_s in this run.
+        deadline = 0.5 * statistics.median(train_round_s["arena"])
+        print(json.dumps({"phase": f"main.{leg}", "deadline_s": deadline,
+                          "dispatch_workers": workers}), flush=True)
+        protocol = DeadlineCohortProtocol(deadline_s=deadline, local_steps=LOCAL_STEPS,
+                                          batch_size=BATCH, learning_rate=LR,
+                                          enforce_wall_clock=True)
+        return run_controller(train, dev, protocol, N_MAIN, rounds=LEG_ROUNDS[leg],
+                              size="10m", lr=LR, faults=FAULTS, workers=workers,
+                              record_selected=True)
+
     legs = {
-        "arena": lambda: _controller(train.main(full)),
-        "stack": lambda: _controller(run_federation(train, dev, lineage_length=2, **short_fed)),
+        "arena": lambda: _controller(train.main(launcher(LEG_ROUNDS["arena"]))),
+        "stack": lambda: _controller(run_federation(train, dev, lineage_length=2,
+                                                    **fed("stack"))),
         "int8_arena": lambda: _controller(run_federation(train, dev, upload_codec="int8",
-                                                         arena_dtype="int8", **main_fed)),
+                                                         arena_dtype="int8", **fed("int8_arena"))),
         "int8_wire": lambda: _controller(run_federation(train, dev, upload_codec="int8",
-                                                        **short_fed)),
+                                                        **fed("int8_wire"))),
         "trimmed_mean": lambda: run_byzantine(train, dev, rule="trimmed_mean", trim_k=TRIM_K,
-                                              **main_fed),
+                                              **fed("trimmed_mean")),
         "median": lambda: _controller(run_federation(train, dev, aggregation_rule="median",
-                                                     **main_fed)),
+                                                     **fed("median"))),
+        "semi_sync": lambda: _spy_first_step_times(first_step_s, lambda: _controller(
+            train.main(launcher(LEG_ROUNDS["semi_sync"], "--protocol", "semi_sync")))),
+        "async": lambda: _controller(train.main(launcher(ASYNC_UPDATES, "--protocol", "async"))),
+        "buffered_async_int8": lambda: _controller(run_federation(
+            train, dev, protocol="buffered_async", buffer_k=FEDBUFF_K, upload_codec="int8",
+            arena_dtype="int8", **{**fed("arena"), "rounds": FEDBUFF_UPDATES})),
+        "deadline_32": lambda: deadline_leg("deadline_32", N_MAIN),
+        "deadline_faults": lambda: deadline_leg("deadline_faults", DEADLINE_WORKERS),
     }
-    expected = {
-        "arena": {"masked_fedavg": ROUNDS},
-        "stack": {"fedavg": SHORT_ROUNDS},
-        "int8_arena": {"quantize": N_MAIN * ROUNDS, "masked_fedavg_q8": ROUNDS},
-        "int8_wire": {"quantize": N_MAIN * SHORT_ROUNDS, "dequantize": N_MAIN * SHORT_ROUNDS,
-                      "masked_fedavg": SHORT_ROUNDS},
-        "trimmed_mean": {"masked_trimmed_mean": ROUNDS},
-        "median": {},
-    }
+
+    def expected(leg: str, c, history) -> dict:
+        """The launches each leg must make, from its own counts."""
+        rounds = len(history)
+        uploads = c.telemetry.value("channel.upload_messages")
+        return {
+            "arena": {"masked_fedavg": rounds},
+            "stack": {"fedavg": rounds},
+            "int8_arena": {"quantize": N_MAIN * rounds, "masked_fedavg_q8": rounds},
+            "int8_wire": {"quantize": N_MAIN * rounds, "dequantize": N_MAIN * rounds,
+                          "masked_fedavg": rounds},
+            "trimmed_mean": {"masked_trimmed_mean": rounds},
+            "median": {},
+            "semi_sync": {"masked_fedavg": rounds},
+            "async": {"masked_fedavg": rounds},  # one per community update
+            "buffered_async_int8": {"quantize": uploads, "masked_fedavg_q8": rounds},
+            "deadline_32": {"masked_fedavg": rounds},
+            "deadline_faults": {"masked_fedavg": rounds},
+        }[leg]
+
     launches = dict.fromkeys(counters, 0)
     resident = {}
     eval_loss = {}
@@ -247,19 +358,29 @@ def main() -> None:
             fn.launches = 0
         t_phase = time.perf_counter()
         c, history = run()
-        rounds = SHORT_ROUNDS if leg in SHORT_LEGS else ROUNDS
         counts = {name: fn.launches for name, fn in counters.items()}
-        eval_loss[leg] = [h_.metrics["eval_loss"] for h_ in history]
-        for h_ in history:
-            print(json.dumps({"phase": f"main.{leg}", "round": h_.round_id,
-                              "aggregation_s": h_.aggregation_s,
-                              "federation_round_s": h_.federation_round_s,
-                              "train_round_s": h_.train_round_s,
-                              "eval_round_s": h_.eval_round_s,
-                              "eval_loss": h_.metrics["eval_loss"]}), flush=True)
-            assert math.isfinite(h_.metrics["eval_loss"]), h_.metrics
-        assert len(history) == rounds, len(history)
-        assert counts == {**dict.fromkeys(counters, 0), **expected[leg]}, (leg, counts)
+        continuous = leg in ("async", "buffered_async_int8")
+        if continuous:
+            agg = [h_.aggregation_s for h_ in history]
+            print(json.dumps({"phase": f"main.{leg}", "updates": len(history),
+                              "aggregation_s": [min(agg), statistics.median(agg), max(agg)]}),
+                  flush=True)
+            assert len(history) >= (ASYNC_UPDATES if leg == "async" else FEDBUFF_UPDATES)
+        else:
+            eval_loss[leg] = [h_.metrics["eval_loss"] for h_ in history]
+            train_round_s[leg] = [h_.train_round_s for h_ in history]
+            for h_ in history:
+                print(json.dumps({"phase": f"main.{leg}", "round": h_.round_id,
+                                  "aggregation_s": h_.aggregation_s,
+                                  "federation_round_s": h_.federation_round_s,
+                                  "train_round_s": h_.train_round_s,
+                                  "eval_round_s": h_.eval_round_s,
+                                  "eval_loss": h_.metrics["eval_loss"]}), flush=True)
+                assert math.isfinite(h_.metrics["eval_loss"]), h_.metrics
+            assert len(history) == LEG_ROUNDS[leg], len(history)
+        rounds = len(history)
+        want = {**dict.fromkeys(counters, 0), **expected(leg, c, history)}
+        assert counts == want, (leg, counts, want)
         up = c.channel.stats.upload_bytes
         tel = c.telemetry
         if leg == "stack":
@@ -272,7 +393,7 @@ def main() -> None:
             assert tuple(arena.buffer.shape) == (N_MAIN, P_MAIN), arena.buffer.shape
         if leg == "arena":
             assert c.arena.buffer.dtype == torch.float32
-            assert up == N_MAIN * ROUNDS * 4 * P_MAIN, up
+            assert up == N_MAIN * rounds * 4 * P_MAIN, up
         if leg.startswith("int8"):
             assert up == N_MAIN * rounds * INT8_ROW_BYTES, up
             direct = N_MAIN * rounds if leg == "int8_arena" else 0
@@ -295,13 +416,22 @@ def main() -> None:
             assert tuple(c.arena.scales.shape) == (N_MAIN, P_MAIN // GROUP)
             shrink = resident["arena"] / resident["int8_arena"]
             assert 3.8 < shrink < 4.0, shrink
+        if leg == "semi_sync":
+            check_semi_sync(c, first_step_s)
+        if leg == "async":
+            eval_loss[leg] = [check_async(c, eval_loss["arena"][-1], kfed)]
+        if leg == "buffered_async_int8":
+            check_fedbuff(c, history)
+        if leg.startswith("deadline"):
+            check_deadline_faults(c, leg, must_fire=leg == "deadline_faults")
         assert torch.isfinite(c.global_buffer).all()
         for name, v in counts.items():
             launches[name] += v
         # Where a round's time goes, from the run's own telemetry: summed
         # host seconds of each wire half (across learner threads, so they
         # overlap) and the learners' EWMA seconds per local step.
-        steps = [p["seconds_per_step"] for p in c._learner_profiles.values()]
+        steps = [p["seconds_per_step"] for p in c._learner_profiles.values()
+                 if "seconds_per_step" in p]
         print(json.dumps({"phase": f"main.{leg}", "breakdown": {
             "broadcast_serialize_s": tel.value("channel.serialize_s"),
             "learner_recv_s": tel.value("channel.deserialize_s"),
@@ -309,19 +439,21 @@ def main() -> None:
             "controller_upload_decode_s": tel.value("channel.upload_deserialize_s"),
             "seconds_per_step_mean": statistics.fmean(steps),
             "aggregate_s_mean": tel.value("engine.aggregate_s"),
-            "round_s_mean": tel.value("engine.round_s")}}), flush=True)
+            "round_s_mean": tel.value("engine.round_s"),
+            "arrival_s": _arrival_offsets(c)}}), flush=True)
         print(json.dumps({"phase": f"main.{leg}", "launches": counts,
                           "upload_bytes": up,
+                          "upload_messages": tel.value("channel.upload_messages"),
                           "upload_meta_bytes": c.channel.stats.upload_meta_bytes,
                           "bytes_resident": resident.get(leg),
                           "quantized_direct": tel.value("engine.uploads.quantized_direct"),
                           "fused_q8": tel.value("controller.aggregations.fused_q8"),
+                          "engine": _engine_counters(c),
                           "global_buffer": list(c.global_buffer.shape),
                           "seconds": time.perf_counter() - t_phase}), flush=True)
         del history, c
         torch.cuda.empty_cache()
-    print(json.dumps({"phase": "main", "eval_loss_by_round": {
-        leg: eval_loss[leg] for leg in ("arena", "trimmed_mean", "median")}}), flush=True)
+    print(json.dumps({"phase": "main", "eval_loss_by_round": eval_loss}), flush=True)
 
     if FAILURES:
         sys.exit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
@@ -354,32 +486,57 @@ def _controller(run: tuple) -> tuple:
     return driver.controller, history
 
 
-def run_byzantine(train, dev, size, learners, rounds, local_steps, lr, rule, trim_k,
-                  workers=32):
-    """A ``Controller`` on a ``FaultyChannel`` with byzantine learners, built as
-    the reference's adversarial arm builds it (``benchmarks/bench_round.py``),
-    with the launcher's learners (same model, data and seed as ``train.main``).
-    Returns ``(controller, history)``; the controller is shut down."""
+def run_controller(train, dev, protocol, learners, rounds=0, updates=0, size="100k", lr=0.01,
+                   faults=None, workers=1, record_selected=False, **ctrl_kw):
+    """A ``Controller`` built directly, with the launcher's learners (same
+    model, data and seed as ``train.main``), on a ``FaultyChannel`` when
+    ``faults`` is a ``FaultSpec``'s fields; runs ``rounds`` rounds or
+    ``updates`` community updates.  ``record_selected`` keeps each round
+    aggregate's learner list at ``controller.selected``.  Returns
+    ``(controller, history)``; the controller is shut down."""
     from repro_torch import optim
-    from repro_torch.core import (Controller, FaultInjector, FaultSpec, FaultyChannel,
-                                  SyncProtocol)
+    from repro_torch.core import Controller, FaultInjector, FaultSpec, FaultyChannel
     from repro_torch.models import mlp as mlp_model
 
     cfg, fleet = train.build_housing_learners(size, learners, seed=0,
                                               optimizer=optim.sgd(lr), device=dev)
     initial = mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev)
-    ctrl = Controller(protocol=SyncProtocol(local_steps, BATCH, lr),
-                      channel=FaultyChannel(FaultInjector(FaultSpec(**BYZANTINE)), device=dev),
-                      aggregation_rule=rule, trim_k=trim_k, arena_n_max=learners,
-                      max_dispatch_workers=workers, device=dev)
+    channel = None
+    if faults is not None:
+        channel = FaultyChannel(FaultInjector(FaultSpec(**faults)), device=dev)
+    ctrl = Controller(protocol=protocol, channel=channel, arena_n_max=learners,
+                      max_dispatch_workers=workers, device=dev, **ctrl_kw)
     ctrl.set_initial_model(initial)
     for learner in fleet:
         ctrl.register_learner(learner)
+    if record_selected:
+        ctrl.selected = []
+        aggregate_round = ctrl.aggregate_round
+
+        def recording(selected):
+            ctrl.selected.append(list(selected))
+            return aggregate_round(selected)
+
+        ctrl.aggregate_round = recording
     try:
-        history = ctrl.engine.run(rounds=rounds)
+        if updates:
+            history = ctrl.engine.run(total_updates=updates)
+        else:
+            history = ctrl.engine.run(rounds=rounds)
     finally:
         ctrl.shutdown()
     return ctrl, history
+
+
+def run_byzantine(train, dev, size, learners, rounds, local_steps, lr, rule, trim_k,
+                  workers=32):
+    """Sync rounds on a ``FaultyChannel`` with byzantine learners, built as the
+    reference's adversarial arm builds it (``benchmarks/bench_round.py``)."""
+    from repro_torch.core import SyncProtocol
+
+    return run_controller(train, dev, SyncProtocol(local_steps, BATCH, lr), learners,
+                          rounds=rounds, size=size, lr=lr, faults=BYZANTINE, workers=workers,
+                          aggregation_rule=rule, trim_k=trim_k)
 
 
 def run_federation(train, dev, size, learners, rounds, local_steps, lr, **env):
@@ -388,7 +545,8 @@ def run_federation(train, dev, size, learners, rounds, local_steps, lr, **env):
 
     ``lineage_length=2`` makes the Driver pick the stack store;
     ``upload_codec``/``arena_dtype`` select the int8 legs,
-    ``aggregation_rule`` the robust rules.
+    ``aggregation_rule`` the robust rules, ``protocol`` (sync by default) the
+    workflow; a continuous one runs ``rounds`` community updates.
     """
     from repro_torch import optim
     from repro_torch.core import Driver, FederationEnv, TerminationCriteria
@@ -397,12 +555,165 @@ def run_federation(train, dev, size, learners, rounds, local_steps, lr, **env):
     cfg, fleet = train.build_housing_learners(size, learners, seed=0,
                                               optimizer=optim.sgd(lr), device=dev)
     initial = mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev)
-    driver = Driver(FederationEnv(protocol="sync", local_steps=local_steps, batch_size=BATCH,
-                                  learning_rate=lr,
+    driver = Driver(FederationEnv(local_steps=local_steps, batch_size=BATCH, learning_rate=lr,
                                   termination=TerminationCriteria(max_rounds=rounds),
                                   device=dev, **env))
     driver.initialize(initial, fleet)
     return driver, driver.run()
+
+
+def _arrival_offsets(c) -> dict:
+    """Per dispatch round: seconds from its first dispatch to its uploads
+    (the first, the 10th, 25th and 50th percentiles and the last), off the
+    journal's clock."""
+    first, seen = {}, {}
+    for r in c.journal.records():
+        if r.get("kind") == "dispatch":
+            first.setdefault(r["round"], r["t"])
+        elif r.get("kind") == "upload" and r.get("round") in first:
+            seen.setdefault(r["round"], []).append(r["t"] - first[r["round"]])
+    def at(v, q):
+        v = sorted(v)
+        return v[min(len(v) - 1, int(q * len(v)))]
+
+    return {str(k): [at(v, q) for q in (0.0, 0.1, 0.25, 0.5, 1.0)]
+            for k, v in sorted(seen.items())}
+
+
+def _engine_counters(c) -> dict:
+    """Every ``engine.faults.*`` and ``engine.uploads.*`` counter of a run."""
+    tel = c.telemetry
+    return {k: tel.value(k) for k in sorted(tel.names())
+            if k.startswith(("engine.faults.", "engine.uploads."))}
+
+
+def _spy_first_step_times(seen: dict, run):
+    """Run ``run()`` recording each learner's first measured seconds per step
+    (what its EWMA profile holds until its second upload)."""
+    from repro_torch.core.controller import Controller
+
+    observe = Controller._observe
+
+    def spy(self, update):
+        seen.setdefault(update.learner_id, update.seconds_per_step)
+        observe(self, update)
+
+    Controller._observe = spy
+    try:
+        return run()
+    finally:
+        Controller._observe = observe
+
+
+def check_semi_sync(c, first_step_s: dict) -> None:
+    """Round 2's dispatched steps equal ``max(1, int((hyperperiod_s - wire_s) /
+    seconds_per_step))`` from the controller's profiles, learner by learner."""
+    from repro_torch.core import Dispatched
+
+    hp = c.protocol.hyperperiod_s
+    sized = {}
+    for e in c.engine.event_log:
+        if isinstance(e, Dispatched) and e.round_id == 1:
+            want = max(1, int((hp - c.wire_time_s(e.learner_id)) / first_step_s[e.learner_id]))
+            assert e.task.local_steps == want, (e.learner_id, e.task.local_steps, want)
+            sized[e.learner_id] = e.task.local_steps
+    assert len(sized) == N_MAIN, sized
+    print(json.dumps({"phase": "main.semi_sync", "hyperperiod_s": hp,
+                      "round_2_local_steps": sized,
+                      "wire_s": c.wire_time_s(next(iter(sized))),
+                      "first_seconds_per_step": [min(first_step_s.values()),
+                                                 statistics.median(first_step_s.values()),
+                                                 max(first_step_s.values())]}), flush=True)
+
+
+def check_async(c, arena_eval_loss: float, kfed) -> float:
+    """Some community update folded a stale upload; the last community update
+    equals its plain replay; the final model's eval loss over every learner is
+    finite and within 1% of the arena leg's last (a sanity check only: every
+    leg's losses read 19.0956-19.0998, so a wrong reduce would pass it)."""
+    from repro_torch.core.aggregation import staleness_weights
+    from repro_torch.core.engine import reduce_eval
+
+    stale = [r["staleness"] for r in c.journal.records()
+             if r.get("kind") == "upload" and "staleness" in r]
+    assert max(stale) > 0, stale
+    # Replay the last update in plain torch on the card: the arena's rows,
+    # weights and versions are as that update read them (every arrival is
+    # written, then reduced), at the model version before its commit.
+    arena = c.arena
+    stal = torch.clamp(float(c._model_version - 1) - arena.versions, min=0.0)
+    alpha = c.protocol.staleness_alpha
+    want = kfed.masked_fedavg_torch(arena.buffer, staleness_weights(arena.weights, stal, alpha),
+                                    arena.mask)[: arena.num_params]
+    diff = (c.global_buffer - want).abs()
+    replay_err = float(diff.max())
+    assert bool((diff <= 1e-5 + 1e-4 * want.abs()).all()), replay_err
+    del want, diff
+    loss = reduce_eval([learner.evaluate(c.global_params, c.round_id)
+                        for learner in c._learners.values()])["eval_loss"]
+    assert math.isfinite(loss) and abs(loss - arena_eval_loss) <= 0.01 * arena_eval_loss, (
+        loss, arena_eval_loss)
+    hist = {str(k): stale.count(k) for k in sorted(set(stale))}
+    print(json.dumps({"phase": "main.async", "staleness_hist": hist, "eval_loss": loss,
+                      "arena_eval_loss": arena_eval_loss,
+                      "last_update_replay_max_abs_err": replay_err}), flush=True)
+    return loss
+
+
+def check_fedbuff(c, history) -> None:
+    """Every aggregate folds exactly K members; every upload landed quantized
+    and every aggregate was the fused int8 reduce."""
+    from repro_torch.core import AggregateFired
+
+    fired = [e for e in c.engine.event_log if isinstance(e, AggregateFired)]
+    assert len(fired) == len(history) and all(len(e.members) == FEDBUFF_K for e in fired), [
+        e.members for e in fired]
+    tel = c.telemetry
+    uploads = tel.value("channel.upload_messages")
+    assert tel.value("engine.uploads.quantized_direct") == uploads, uploads
+    assert tel.value("controller.aggregations.fused_q8") == len(history)
+    assert uploads == FEDBUFF_K * len(history), (uploads, len(history))
+    print(json.dumps({"phase": "main.buffered_async_int8", "aggregates": len(history),
+                      "uploads": uploads}), flush=True)
+
+
+def check_deadline_faults(c, leg: str, must_fire: bool) -> None:
+    """Lost and duplicated uploads equal the injector's fates for the
+    dispatched (learner, round) pairs; the deadline fired (where
+    ``must_fire``; otherwise its fires are only printed); every late upload
+    is folded into the next round's reduce (or is still owed, when it came
+    after the last round)."""
+    from repro_torch.core import (AggregateFired, Dispatched, FaultInjector, FaultSpec,
+                                  UploadArrived)
+
+    injector = FaultInjector(FaultSpec(**FAULTS))
+    fates = [injector.upload_fate(e.learner_id, e.round_id) for e in c.engine.event_log
+             if isinstance(e, Dispatched)]
+    aggregates, late = 0, []
+    for e in c.engine.event_log:
+        if isinstance(e, AggregateFired):
+            aggregates += 1
+        elif (isinstance(e, UploadArrived) and not e.duplicate
+              and e.update.upload.metadata.get("fault") != "lost"
+              and e.update.round_id < aggregates):
+            late.append((e.learner_id, aggregates))
+    cohorts = [sum(1 for e in c.engine.event_log if isinstance(e, Dispatched) and e.round_id == r)
+               for r in range(LEG_ROUNDS[leg])]
+    print(json.dumps({"phase": f"main.{leg}", "cohorts": cohorts,
+                      "lost": fates.count("lost"), "dup": fates.count("dup"),
+                      "late": late, "reduced": [len(x) for x in c.selected],
+                      "arrival_s": _arrival_offsets(c), "engine": _engine_counters(c)}),
+          flush=True)
+    tel = c.telemetry
+    assert tel.value("engine.faults.uploads_lost") == fates.count("lost"), fates
+    assert tel.value("engine.faults.uploads_duplicated") == fates.count("dup"), fates
+    if must_fire:
+        assert tel.value("engine.faults.deadline_fires") >= 1, _engine_counters(c)
+    for lid, owed in late:
+        if owed < len(c.selected):
+            assert lid in c.selected[owed], (lid, owed, c.selected[owed])
+        else:
+            assert lid in c.engine._late_carry, (lid, c.engine._late_carry)
 
 
 def within_q8_bar(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -927,7 +1238,8 @@ def check_trimmed_mean(krob, dev) -> float:
     except ValueError:
         pass
     # NaN (either sign) in live rows and +inf meeting -inf: NaN last, as the
-    # sort on the host puts it (torch.sort on the card puts a negative NaN first).
+    # plain version puts it on the host and, since it makes NaN positive
+    # before its sort, on the card.
     rows[2::3] = float("nan")
     rows[4::5] = -float("nan")
     rows[1, :500] = float("inf")
@@ -935,11 +1247,14 @@ def check_trimmed_mean(krob, dev) -> float:
     for trim_k in (1, 3):
         for mask in (torch.ones((8,), device=dev), two):
             got = krob.masked_trimmed_mean_cuda(rows, mask, trim_k).cpu()
-            want = krob.masked_trimmed_mean_torch(rows.cpu(), mask.cpu(), trim_k)
-            same = ((got == want) | ((got - want).abs() <= 1e-5)
-                    | (torch.isnan(got) & torch.isnan(want)))
-            _expect(bool(same.all()), f"masked_trimmed_mean NaN rows trim_k={trim_k}: "
-                                      f"{int((~same).sum())} columns differ")
+            for where, want in (
+                    ("host", krob.masked_trimmed_mean_torch(rows.cpu(), mask.cpu(), trim_k)),
+                    ("card", krob.masked_trimmed_mean_torch(rows, mask, trim_k).cpu())):
+                same = ((got == want) | ((got - want).abs() <= 1e-5)
+                        | (torch.isnan(got) & torch.isnan(want)))
+                _expect(bool(same.all()), f"masked_trimmed_mean NaN rows trim_k={trim_k} "
+                                          f"vs plain on the {where}: "
+                                          f"{int((~same).sum())} columns differ")
     print(json.dumps({"phase": "kernels", "masked_trimmed_mean": "degenerate",
                       "fallback_mean": True, "empty_mask_zeros": True,
                       "trim_k_value_error": True, "nan_in_live_rows": True}), flush=True)
@@ -979,7 +1294,7 @@ def time_trimmed_mean(krob, dev, errs: dict) -> dict:
                              (2 * _sorting_network_size(N_MAIN) + N_MAIN) * P_MAIN,
                              [N_MAIN, P_MAIN])
         names = _count_device_kernels(f"masked_trimmed_mean trim_k={trim_k}", kern,
-                                      [N_MAIN, P_MAIN], calls=20)
+                                      [N_MAIN, P_MAIN], calls=20, windows=5)
         _one_kernel_a_call("masked_trimmed_mean", names, "network_kernel", 20)
     network = (2 * _sorting_network_size(N_MAIN) + 2 * N_MAIN) * P_MAIN
     print(json.dumps({"phase": "kernels", "masked_trimmed_mean": "network_diagnostic",

@@ -40,8 +40,13 @@ from repro_torch.core.journal import EventJournal, RoundSummary
 from repro_torch.core.metrics import Counter, Gauge, Histogram, Telemetry
 from repro_torch.core.store import ArenaStore, ModelRecord, ModelStore
 from repro_torch.core.scheduler import (
+    AsyncProtocol,
+    BufferedAsyncProtocol,
+    DeadlineCohortProtocol,
     LearnerProfile,
     ProtocolPolicy,
+    ReputationProtocol,
+    SemiSyncProtocol,
     SyncProtocol,
     TrainTask,
 )
@@ -50,6 +55,7 @@ from repro_torch.core.server_opt import ServerOptimizer, make_server_optimizer
 from repro_torch.core.learner import EvalReport, Learner, LocalUpdate
 from repro_torch.core.engine import (
     AggregateFired,
+    DeadlineExpired,
     Dispatched,
     EngineStopped,
     Evaluated,
@@ -89,12 +95,15 @@ __all__ = [
     "coordinate_median", "trimmed_mean", "masked_coordinate_median",
     "masked_trimmed_mean",
     "ModelRecord", "ModelStore", "ArenaStore",
-    "SyncProtocol", "TrainTask", "ProtocolPolicy", "LearnerProfile",
+    "SyncProtocol", "SemiSyncProtocol", "AsyncProtocol", "BufferedAsyncProtocol",
+    "DeadlineCohortProtocol", "ReputationProtocol",
+    "TrainTask", "ProtocolPolicy", "LearnerProfile",
     "SelectionPolicy", "select_learners",
     "ServerOptimizer", "make_server_optimizer",
     "Learner", "LocalUpdate", "EvalReport",
     "Controller", "RoundTimings", "RoundEngine",
-    "Dispatched", "UploadArrived", "AggregateFired", "Evaluated", "EngineStopped",
+    "Dispatched", "UploadArrived", "AggregateFired", "DeadlineExpired", "Evaluated",
+    "EngineStopped",
     "UploadRejected", "UploadClipped", "LearnerQuarantined", "UploadRejectedError",
     "Telemetry", "Counter", "Gauge", "Histogram",
     "EventJournal", "RoundSummary",

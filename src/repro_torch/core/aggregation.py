@@ -24,6 +24,9 @@ plain sort-then-trim on the host.  The median rules and the stack store's
 :func:`trimmed_mean` are ``jnp.sort``/``jnp.median`` in the reference, outside
 any Pallas kernel, so they stay ``torch.sort`` here (never ``torch.median``,
 which returns the lower middle value where ``jnp.median`` averages the two).
+Each of those sorts first makes every NaN positive
+(``kernels/robust.positive_nan``): ``torch.sort`` on the card puts a negative
+NaN first, where the host and ``jnp.sort`` put every NaN last.
 
 The top-k forms and the sharded variants belong to later slices of the port
 (``ROADMAP.md``).
@@ -35,7 +38,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.fedavg import masked_normalize
-from repro_torch.kernels.fedavg import normalize as _normalize
+from repro_torch.kernels.robust import positive_nan
 
 __all__ = [
     "fedavg",
@@ -162,7 +165,7 @@ def coordinate_median(stack: torch.Tensor) -> torch.Tensor:
     ``jnp.median``'s semantics: the mean of the two middle values for an even
     count, and NaN in every column that holds a NaN.
     """
-    x = stack.to(torch.float32)
+    x = positive_nan(stack.to(torch.float32))
     n = x.shape[0]
     s = torch.sort(x, dim=0).values
     med = (s[(n - 1) // 2] + s[n // 2]) * 0.5
@@ -175,7 +178,7 @@ def trimmed_mean(stack: torch.Tensor, trim_k: int) -> torch.Tensor:
     n = stack.shape[0]
     if 2 * trim_k >= n:
         raise ValueError(f"trim_k={trim_k} too large for N={n}")
-    s = torch.sort(stack.to(torch.float32), dim=0).values
+    s = torch.sort(positive_nan(stack.to(torch.float32)), dim=0).values
     out = s[trim_k: n - trim_k].mean(dim=0)
     return out.to(_robust_out_dtype(stack))
 
@@ -194,7 +197,7 @@ def masked_coordinate_median(
     """
     del weights  # order statistics are weight-blind by design
     m = torch.as_tensor(mask).to(arena.device, torch.float32)
-    rows = torch.where(m[:, None] > 0, arena.to(torch.float32), torch.inf)
+    rows = positive_nan(torch.where(m[:, None] > 0, arena.to(torch.float32), torch.inf))
     s = torch.sort(rows, dim=0).values
     # The middle ranks stay device tensors: no host readback of n_valid.
     n_valid = m.sum().to(torch.int64).reshape(1)

@@ -3,9 +3,9 @@
 A framework-free copy of ``repro/core/config.py``: the same fields, defaults
 and validation, so one configuration describes a federation in both
 packages.  Values whose machinery is a later slice of the port (the top-k
-codec and arena, sharding, checkpoints) validate here and are refused by
-``Controller`` with ``NotImplementedError``; the robust rules
-(``aggregation_rule``, ``trim_k``) run.
+codec and arena, sharding, checkpoints — slices F, G and B-2) validate here
+and are refused by ``Controller`` with ``NotImplementedError``; the robust
+rules (``aggregation_rule``, ``trim_k``) run.
 :class:`FederationConfig` is one frozen, validated dataclass:
 
 * every knob is declared once, with its default and its validity range

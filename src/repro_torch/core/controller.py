@@ -1,10 +1,10 @@
 """The Federation Controller — model state, transport and store plumbing.
 
-The port of ``repro/core/controller.py`` for the ported slices: round-based
-(sync) protocols, the f32 or int8 arena or the stack store, the raw or int8
-upload codec (and the int8 downlink codec) and FedAvg, on one device.  The
-round engine (``core/engine.py``) drives protocols and calls back into this
-plumbing:
+The port of ``repro/core/controller.py`` for the ported slices: every
+protocol policy (round-based and continuous), the f32 or int8 arena or the
+stack store, the raw or int8 upload codec (and the int8 downlink codec),
+FedAvg and the robust rules, on one device.  The round engine
+(``core/engine.py``) drives protocols and calls back into this plumbing:
 
 * **serialize-once broadcast** — the global model is serialized at most once
   per model version (:meth:`Controller._broadcast`), straight off the flat
@@ -18,12 +18,17 @@ plumbing:
   kernel (the fused dequant-into-aggregate on an int8 arena); or, under
   ``aggregation_rule="trimmed_mean"`` / ``"median"``, the robust order
   statistic (the trimmed mean through the hand-written sorting-network kernel,
-  the median through ``torch.sort``); then the server optimizer, a device
-  sync and the commit.
+  the median through ``torch.sort``); then the server optimizer, a wait on
+  the device and the commit;
+* **community updates** (:meth:`Controller.aggregate_community`,
+  :meth:`Controller.aggregate_buffer`) — the continuous policies'
+  staleness-damped reduce over every valid row (async) or exactly the
+  buffered members (FedBuff), through the same kernels with staleness
+  weights.
 
-Secure aggregation, the top-k codec and arena, the sharded arena, the
-continuous protocols and checkpoints are later slices of the port: asking
-for them raises ``NotImplementedError`` at construction.
+Secure aggregation, the top-k codec and arena, the sharded arena and
+checkpoints are later slices of the port: asking for them raises
+``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from repro_torch.core.selection import SelectionPolicy
 from repro_torch.core.server_opt import ServerOptimizer, make_server_optimizer
 from repro_torch.core.store import ArenaStore, ModelRecord, ModelStore
 from repro_torch.core.transport import Broadcast, Channel, get_upload_codec
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import resolve_device, wait_queued
 
 __all__ = ["RoundTimings", "Controller"]
 
@@ -62,11 +67,12 @@ def _later_slice(what: str, slice_name: str) -> NotImplementedError:
 class Controller:
     """The federation controller: model state + transport + store plumbing.
 
-    ``controller.engine.run(rounds=N)`` drives the protocol.  Parameters
+    ``controller.engine.run(rounds=N)`` drives a round-based protocol,
+    ``controller.engine.run(total_updates=N)`` a continuous one.  Parameters
     follow the reference's ``Controller``; this slice honours:
 
     protocol:
-        A round-based :class:`~repro_torch.core.scheduler.ProtocolPolicy`
+        A :class:`~repro_torch.core.scheduler.ProtocolPolicy`
         (``SyncProtocol`` by default).
     aggregate_fn / masked_aggregate_fn:
         ``(stack, weights) -> (P,)`` and ``(arena, weights, mask) -> (P,)``;
@@ -172,15 +178,13 @@ class Controller:
         if sparse_mode != "densify":
             raise _later_slice(f"sparse_mode={sparse_mode!r}", "slice F")
         if checkpoint_every is not None or checkpoint_dir is not None:
-            raise _later_slice("checkpoint/resume", "slice B")
+            raise _later_slice("checkpoint/resume", "slice B-2")
         if store is not None and store_mode == "arena":
             raise ValueError(
                 "store= is only honoured with store_mode='stack'; the arena "
                 "mode keeps uploads in its device-resident ArenaStore"
             )
         self.protocol = protocol or SyncProtocol()
-        if getattr(self.protocol, "continuous", False):
-            raise _later_slice(f"the {type(self.protocol).__name__} policy", "slice B")
         self.device = resolve_device(device)
         self.selection = selection or SelectionPolicy()
         if aggregation_rule not in ("fedavg", "median", "trimmed_mean"):
@@ -386,7 +390,12 @@ class Controller:
         self._ship_manifest(learner)
 
     def deregister_learner(self, learner_id: str) -> None:
-        """Remove a learner mid-federation (dropout); unknown ids are a no-op."""
+        """Remove a learner mid-federation (dropout); unknown ids are a no-op.
+
+        Call only while the engine loop is idle (between ``engine.run``
+        calls) or from the loop thread: it mutates the engine's FedBuff
+        buffer.
+        """
         if learner_id not in self._learners:
             return
         del self._learners[learner_id]
@@ -396,6 +405,10 @@ class Controller:
         else:
             with self._store_lock:
                 self.store.discard(learner_id)
+        # A buffered (ingested-but-unaggregated) FedBuff member can no longer
+        # contribute: it leaves the pending buffer too.
+        if learner_id in self.engine._buffer:
+            self.engine._buffer.remove(learner_id)
         self._c_dropouts.add(1)
 
     @property
@@ -621,9 +634,10 @@ class Controller:
         self._server_state, new_buffer = self.server_opt.apply(
             self._server_state, self.global_buffer, new_buffer
         )
-        # The card returns before it finishes: wait, so aggregation_s bounds
-        # the reduction and the server step, not their launch.
-        synchronize(self.device)
+        # The card returns before it finishes: wait for the reduction and the
+        # server step, so aggregation_s bounds them, not their launch (and not
+        # the learner work other threads queue after them).
+        wait_queued(self.device)
         self.global_buffer = new_buffer
         self.global_params = packing.unpack_numeric(new_buffer, self.manifest)
         self._model_version += 1
@@ -671,6 +685,90 @@ class Controller:
             else:
                 out = self.masked_aggregate_fn(arena.buffer, arena.weights, mask)
             return out[: arena.num_params]
+
+    def _staleness_reduce(self, mask: torch.Tensor, alpha: float) -> torch.Tensor:
+        """Staleness-damped masked reduce over the arena (caller holds its lock).
+
+        ``s_i = model_version - v_i`` from the per-row versions; the int8
+        arena reduces through the fused dequant-into-aggregate (counted in
+        ``controller.aggregations.fused_q8``), the f32 arena through the
+        masked FedAvg kernel.
+        """
+        arena = self.arena
+        version = float(self._model_version)
+        if self.arena_dtype == "int8":
+            out = aggregation.masked_staleness_q8(
+                arena.buffer, arena.scales, arena.weights, arena.versions,
+                version, mask, alpha, arena.qgroup,
+            )
+            self._c_fused_agg.add(1)
+        else:
+            out = aggregation.masked_staleness_average(
+                arena.buffer, arena.weights, arena.versions, version, mask, alpha,
+            )
+        return out[: arena.num_params]
+
+    def _staleness_stack(self, records: list[ModelRecord], alpha: float) -> torch.Tensor:
+        """Staleness-damped reduce of re-stacked stored models (stack mode)."""
+        stal = torch.tensor(
+            [self._model_version - r.metadata.get("model_version", 0) for r in records],
+            dtype=torch.float32, device=self.device,
+        )
+        n_ex = torch.tensor([float(r.num_examples) for r in records],
+                            dtype=torch.float32, device=self.device)
+        stack = torch.stack([r.buffer for r in records], dim=0)
+        return self.aggregate_fn(stack, aggregation.staleness_weights(n_ex, stal, alpha))
+
+    def aggregate_community(self) -> float:
+        """One staleness-weighted community update (the async policy).
+
+        The arrival that triggered it was already written in place by
+        :meth:`ingest`, so the update is one reduce over every valid row,
+        whatever the federation's size.  Commits the result; returns the
+        aggregation seconds.
+        """
+        alpha = getattr(self.protocol, "staleness_alpha", 0.5)
+        t0 = time.perf_counter()
+        if self.store_mode == "arena":
+            with self.arena.lock:
+                new_buffer = self._staleness_reduce(self.arena.mask, alpha)
+        else:
+            with self._store_lock:
+                records = self.store.select_latest(None)  # all known models
+            if not records:
+                raise RuntimeError("no local models available to aggregate")
+            new_buffer = self._staleness_stack(records, alpha)
+        self._commit(new_buffer)
+        return time.perf_counter() - t0
+
+    def aggregate_buffer(self, members: list[str]) -> float:
+        """One FedBuff community update over exactly the buffered members.
+
+        Staleness-damped like :meth:`aggregate_community`, but restricted to
+        the members' stored rows, folded in **registration order** (not
+        arrival order), so the reduce is the same under any executor
+        interleaving.  Commits the result; returns the seconds.
+        """
+        alpha = getattr(self.protocol, "staleness_alpha", 0.5)
+        wanted = set(members)
+        ordered = [lid for lid in self._learners if lid in wanted]
+        t0 = time.perf_counter()
+        if not ordered:
+            raise RuntimeError("no local models available to aggregate")
+        if self.store_mode == "arena":
+            arena = self.arena
+            with arena.lock:
+                if arena.num_valid(ordered) == 0:
+                    raise RuntimeError("no local models available to aggregate")
+                new_buffer = self._staleness_reduce(arena.round_mask(ordered), alpha)
+        else:
+            with self._store_lock:
+                records = self.store.select_latest(ordered)
+            if not records:
+                raise RuntimeError("no local models available to aggregate")
+            new_buffer = self._staleness_stack(records, alpha)
+        self._commit(new_buffer)
+        return time.perf_counter() - t0
 
     # -------------------------------------------------------------- lifecycle
     def shutdown(self) -> None:

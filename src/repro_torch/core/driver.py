@@ -20,7 +20,14 @@ from repro_torch.core.config import FederationConfig
 from repro_torch.core.controller import Controller
 from repro_torch.core.engine import RoundTimings
 from repro_torch.core.learner import Learner
-from repro_torch.core.scheduler import SyncProtocol
+from repro_torch.core.scheduler import (
+    AsyncProtocol,
+    BufferedAsyncProtocol,
+    DeadlineCohortProtocol,
+    ReputationProtocol,
+    SemiSyncProtocol,
+    SyncProtocol,
+)
 from repro_torch.core.selection import SelectionPolicy
 from repro_torch.core.server_opt import make_server_optimizer
 from repro_torch.core.store import ModelStore
@@ -30,10 +37,6 @@ from repro_torch.device import resolve_device
 log = logging.getLogger("repro_torch.driver")
 
 __all__ = ["FederationEnv", "TerminationCriteria", "Driver"]
-
-#: The reference's other protocols, ported in slice B.
-_LATER_PROTOCOLS = ("semi_sync", "async", "buffered_async", "deadline", "reputation")
-
 
 @dataclasses.dataclass(frozen=True)
 class TerminationCriteria:
@@ -56,10 +59,12 @@ class FederationEnv:
     reference).  ``device`` is where the federation runs.
     """
 
-    protocol: str = "sync"
+    protocol: str = "sync"  # sync|semi_sync|async|buffered_async|deadline|reputation
     local_steps: int = 1
     batch_size: int = 100
     learning_rate: float = 0.01
+    hyperperiod_s: float = 1.0
+    staleness_alpha: float = 0.5
     prox_mu: float = 0.0
     selection: SelectionPolicy = SelectionPolicy()
     server_optimizer: str = "fedavg"
@@ -77,6 +82,13 @@ class FederationEnv:
     sparse_mode: str = "densify"
     profile_decay: float = 0.5
     wire_aware: bool = True
+    # Buffered-async (FedBuff) only: aggregate every K arrivals.
+    buffer_k: int = 8
+    # Deadline-cohort only: wall-clock budget a cohort member's predicted
+    # round trip must fit inside.
+    deadline_s: float = 1.0
+    # Reputation only: top fraction of ranked learners kept per round.
+    reputation_fraction: float = 0.5
     aggregation_rule: str = "fedavg"
     trim_k: int = 1
     bandwidth_gbps: float = 10.0
@@ -106,9 +118,34 @@ class FederationEnv:
         if self.protocol == "sync":
             return SyncProtocol(self.local_steps, self.batch_size, self.learning_rate,
                                 prox_mu=self.prox_mu)
-        if self.protocol in _LATER_PROTOCOLS:
-            raise NotImplementedError(
-                f"protocol {self.protocol!r} is slice B of the port (ROADMAP.md)"
+        if self.protocol == "semi_sync":
+            return SemiSyncProtocol(
+                self.hyperperiod_s, self.batch_size, self.learning_rate,
+                default_steps=self.local_steps, prox_mu=self.prox_mu,
+                wire_aware=self.wire_aware,
+            )
+        if self.protocol == "async":
+            return AsyncProtocol(
+                self.local_steps, self.batch_size, self.learning_rate,
+                self.staleness_alpha, prox_mu=self.prox_mu,
+            )
+        if self.protocol == "buffered_async":
+            return BufferedAsyncProtocol(
+                buffer_k=self.buffer_k, local_steps=self.local_steps,
+                batch_size=self.batch_size, learning_rate=self.learning_rate,
+                staleness_alpha=self.staleness_alpha, prox_mu=self.prox_mu,
+            )
+        if self.protocol == "deadline":
+            return DeadlineCohortProtocol(
+                deadline_s=self.deadline_s, local_steps=self.local_steps,
+                batch_size=self.batch_size, learning_rate=self.learning_rate,
+                prox_mu=self.prox_mu,
+            )
+        if self.protocol == "reputation":
+            return ReputationProtocol(
+                fraction=self.reputation_fraction,
+                local_steps=self.local_steps, batch_size=self.batch_size,
+                learning_rate=self.learning_rate, prox_mu=self.prox_mu,
             )
         raise ValueError(f"unknown protocol {self.protocol}")
 
@@ -193,19 +230,24 @@ class Driver:
 
     # -- run ------------------------------------------------------------------
     def run(self) -> list[RoundTimings]:
-        """Run federation rounds (one engine loop each) until termination fires."""
+        """Run the federation until termination fires: round-based policies
+        one engine loop a round, continuous ones ``max_rounds`` community
+        updates in one loop."""
         t_start = time.monotonic()
         history: list[RoundTimings] = []
         engine = self.controller.engine
-        while not self._terminated(t_start, history):
-            self._heartbeat()
-            timings = engine.run(rounds=1)[0]
-            history.append(timings)
-            log.info(
-                "round %d: fed=%.3fs agg=%.4fs metrics=%s",
-                timings.round_id, timings.federation_round_s,
-                timings.aggregation_s, timings.metrics,
-            )
+        if getattr(self.controller.protocol, "continuous", False):
+            history = engine.run(total_updates=self.env.termination.max_rounds)
+        else:
+            while not self._terminated(t_start, history):
+                self._heartbeat()
+                timings = engine.run(rounds=1)[0]
+                history.append(timings)
+                log.info(
+                    "round %d: fed=%.3fs agg=%.4fs metrics=%s",
+                    timings.round_id, timings.federation_round_s,
+                    timings.aggregation_s, timings.metrics,
+                )
         self.shutdown()
         return history
 

@@ -1,29 +1,34 @@
-"""The event-driven round engine: one arrival-driven loop.
+"""The event-driven round engine: one arrival-driven loop for every protocol.
 
-The port of ``repro/core/engine.py`` for round-based policies (the sync
-protocol of this slice).  :meth:`RoundEngine.run` consumes **typed events**
-and delegates every protocol decision to the
+The port of ``repro/core/engine.py``.  :meth:`RoundEngine.run` consumes
+**typed events** and delegates every protocol decision to the
 :class:`~repro_torch.core.scheduler.ProtocolPolicy` hooks; the controller is
 model-state + transport + store plumbing (``core/controller.py``); the engine
 owns the dispatch executor and the control flow.
 
-Event grammar:
+Event grammar (one loop, six workflows):
 
 * :class:`Dispatched` — a task left the controller for a learner;
 * :class:`UploadArrived` — a learner's ``LocalUpdate`` came off the measured
   uplink, posted from an executor thread through :meth:`RoundEngine.post`;
   the loop ingests it and asks ``policy.should_aggregate``;
-* :class:`AggregateFired` — the policy said aggregate (full-cohort FedAvg);
-* :class:`Evaluated` — the post-aggregation eval fan-out reduced its reports.
+* :class:`AggregateFired` — the policy said aggregate: the cohort FedAvg for
+  round-based policies, a staleness-damped community update for the
+  continuous ones (over exactly the buffered ``members`` under FedBuff);
+* :class:`DeadlineExpired` — a deadline-cohort round's wall-clock timer
+  elapsed: the loop aggregates what arrived, stragglers fold into the next
+  round as late uploads;
+* :class:`Evaluated` — the post-aggregation eval fan-out reduced its reports
+  (round-based policies only).
 
 The loop is the only consumer of the queue, so all state mutation is
 serialized without protocol code touching a lock.  Learner work runs on a
 ``ThreadPoolExecutor``; CUDA work issued from those threads goes to the
-default stream, which keeps it correct.  Continuous policies, deadlines,
-the transport fault fates (``lost``/``dup``) and checkpoints are slice B of
-the port: an arrival whose metadata carries a ``fault`` raises
-``NotImplementedError``.  Adversarial fates (``core/faults.py``) ride on
-``ok`` uploads and meet the admission screen and quarantine like any other.
+default stream, which keeps it correct.  The transport fault fates stamped
+by ``core/faults.FaultyChannel`` are enacted here: a ``lost`` upload is never
+ingested (the round's quorum shrinks; a continuous learner gets a retry
+leg), a ``dup`` upload is delivered twice, the second copy handled inline.
+Checkpoints (the reference's pre-checkpoint drain) are slice B-2 of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import queue
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Any
@@ -52,6 +58,7 @@ __all__ = [
     "LearnerQuarantined",
     "UploadRejectedError",
     "AggregateFired",
+    "DeadlineExpired",
     "Evaluated",
     "EngineStopped",
     "RoundEngine",
@@ -123,6 +130,9 @@ class UploadArrived:
 
     update: LocalUpdate | None
     error: BaseException | None = None
+    #: True for the engine-requeued second delivery of a fault-injected
+    #: duplicated upload; duplicates do not consume an outstanding slot.
+    duplicate: bool = False
 
     @property
     def learner_id(self) -> str | None:
@@ -161,11 +171,26 @@ class LearnerQuarantined:
 
 @dataclasses.dataclass(frozen=True)
 class AggregateFired:
-    """The policy decided to aggregate (cohort complete)."""
+    """The policy decided to aggregate (cohort complete / every arrival)."""
 
     round_id: int
     n_arrived: int
-    trigger: str | None = None
+    trigger: str | None = None  # the arriving learner, for continuous re-dispatch
+    #: Buffered-async (FedBuff) only: the exact learner ids folded into this
+    #: community update (None for round-based / plain-async aggregates).
+    members: tuple | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DeadlineExpired:
+    """A round's wall-clock deadline elapsed (DeadlineCohortProtocol).
+
+    Posted by the per-round timer; the loop fires a *partial* aggregate over
+    whatever arrived, and stragglers fold into the next round as late
+    uploads.  Ignored (logged only) when the round already aggregated.
+    """
+
+    round_id: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +225,7 @@ class _RoundState:
     arrived_ids: set = dataclasses.field(default_factory=set)
     dropped: set = dataclasses.field(default_factory=set)
     aggregated: bool = False
+    deadline_timer: Any = None
 
 
 def reduce_eval(reports: list[EvalReport]) -> dict:
@@ -215,12 +241,14 @@ def reduce_eval(reports: list[EvalReport]) -> dict:
 
 
 class RoundEngine:
-    """One arrival-driven loop driving round-based federation workflows.
+    """One arrival-driven loop driving every federation workflow.
 
-    ``run(rounds=N)`` drives the sync policy.  :meth:`post` is the only
-    entry point for worker threads; every event is processed on the thread
-    inside :meth:`run`.  ``event_log`` (bounded) keeps the typed events in
-    processing order; ``journal`` their serialized form.
+    ``run(rounds=N)`` drives round-based policies (sync, semi-sync, deadline
+    cohorts, reputation); ``run(total_updates=N)`` the continuous ones
+    (async, FedBuff).  :meth:`post` is the only entry point for worker
+    threads; every event is processed on the thread inside :meth:`run`.
+    ``event_log`` (bounded) keeps the typed events in processing order;
+    ``journal`` their serialized form.
     """
 
     def __init__(
@@ -239,8 +267,22 @@ class RoundEngine:
         self._h_aggregate_s = self.telemetry.histogram("engine.aggregate_s")
         self._g_round = self.telemetry.gauge("engine.round_id")
         self._c_orphaned = self.telemetry.counter("engine.uploads.orphaned")
+        self._c_lost = self.telemetry.counter("engine.faults.uploads_lost")
+        self._c_dup = self.telemetry.counter("engine.faults.uploads_duplicated")
+        self._c_late = self.telemetry.counter("engine.faults.uploads_late")
+        self._c_deadline = self.telemetry.counter("engine.faults.deadline_fires")
         self.aggregates_fired = 0  # lifetime AggregateFired count
         self._outstanding = 0  # dispatched-but-not-arrived tasks (loop thread only)
+        # Continuous-policy state that outlives a single run() call: the
+        # FedBuff arrival buffer and the stragglers owed to the next
+        # round-based aggregate.
+        self._buffer: list[str] = []
+        self._late_carry: list[str] = []
+        # Continuous-mode learners owed a re-dispatch after a checkpoint
+        # (the reference's pre-checkpoint drain, slice B-2 of the port);
+        # without checkpoints a lost upload is retried at once, so this
+        # stays empty.
+        self._retry_pending: list[str] = []
         # Loop-thread mirror of channel.upload_bytes, advanced as arrivals are
         # processed, so aggregate records carry a deterministic uplink total.
         self._up_bytes_seen = 0
@@ -292,6 +334,7 @@ class RoundEngine:
     def _start_round(self) -> _RoundState:
         """Select the cohort and fan its tasks out (paper T1-T3)."""
         c = self.controller
+        continuous = bool(getattr(c.protocol, "continuous", False))
         state = _RoundState(
             round_id=c.round_id,
             cohort=[],
@@ -306,6 +349,8 @@ class RoundEngine:
             available = eligible
         kwargs: dict[str, Any] = {}
         if getattr(c.protocol, "needs_profiles", False):
+            # Ranking/predicting policies also see the EWMA profiles and each
+            # learner's modeled round-trip wire time.
             kwargs["profiles"] = c._learner_profiles
             kwargs["wire_s"] = {lid: c.wire_time_s(lid) for lid in available}
         state.cohort = c.protocol.select_cohort(
@@ -315,13 +360,29 @@ class RoundEngine:
             {lid: c._learners[lid].num_examples for lid in available},
             **kwargs,
         )
-        if not state.cohort:
+        if continuous:
+            # Learners already sitting in the FedBuff buffer have an
+            # ingested-but-unaggregated row; re-dispatching them would
+            # overwrite it before it is reduced.
+            buffered = set(self._buffer)
+            state.cohort = [lid for lid in state.cohort if lid not in buffered]
+        if not state.cohort and not self._buffer:
             raise RuntimeError("no learners selected for dispatch")
         state.t_train = time.perf_counter()
-        broadcast = c._broadcast()
+        broadcast = c._broadcast() if state.cohort else None
         for lid in state.cohort:
             self._dispatch_one(lid, broadcast)
         state.timings.train_dispatch_s = time.perf_counter() - state.t_train
+        deadline = getattr(c.protocol, "deadline_s", None)
+        if (not continuous and deadline is not None
+                and getattr(c.protocol, "enforce_wall_clock", False)):
+            timer = threading.Timer(
+                float(deadline),
+                lambda rid=state.round_id: self.post(DeadlineExpired(round_id=rid)),
+            )
+            timer.daemon = True
+            timer.start()
+            state.deadline_timer = timer
         return state
 
     # -- evaluation ---------------------------------------------------------
@@ -346,18 +407,31 @@ class RoundEngine:
         self._log(Evaluated(round_id=state.round_id, metrics=state.timings.metrics))
 
     # -- the loop -----------------------------------------------------------
-    def run(self, rounds: int | None = None) -> list[RoundTimings]:
-        """Drive ``rounds`` federation rounds; one :class:`RoundTimings` each."""
+    def run(
+        self, rounds: int | None = None, total_updates: int | None = None
+    ) -> list[RoundTimings]:
+        """Drive the federation: ``rounds=`` for round-based policies,
+        ``total_updates=`` for the continuous ones.
+
+        Returns one :class:`RoundTimings` per completed round / community
+        update (continuous runs may append a few extra entries: tasks still
+        in flight when the target is reached are drained and, as the paper's
+        per-arrival semantics say, still aggregated).
+        """
         c = self.controller
         if c.global_params is None:
             raise RuntimeError("set_initial_model() before running rounds")
-        if getattr(c.protocol, "continuous", False):
-            raise NotImplementedError(
-                "continuous (async) policies are slice B of the port (ROADMAP.md)"
-            )
-        if rounds is None:
-            raise TypeError("round-based policies need rounds=")
-        target = int(rounds)
+        continuous = bool(getattr(c.protocol, "continuous", False))
+        if continuous:
+            if total_updates is None:
+                raise TypeError("continuous (async) policies need total_updates=")
+            target = int(total_updates)
+        else:
+            if rounds is None:
+                raise TypeError("round-based policies need rounds=")
+            if total_updates is not None:
+                raise TypeError("total_updates= requires a continuous (async) policy")
+            target = int(rounds)
         if target <= 0:
             return []
 
@@ -366,8 +440,12 @@ class RoundEngine:
         state: _RoundState | None = None
 
         def fire_round(trigger: str | None, partial: bool = False) -> None:
-            # Round aggregate: reduce what arrived, evaluate, advance the round.
+            # Round-based aggregate: reduce what arrived (plus carried-over
+            # stragglers), evaluate, advance the round.
             nonlocal state, completed
+            if state.deadline_timer is not None:
+                state.deadline_timer.cancel()
+                state.deadline_timer = None
             ctx: dict[str, Any] = dict(
                 weighting=c.protocol.weighting(),
                 model_version=c._model_version,
@@ -410,29 +488,73 @@ class RoundEngine:
             if c.protocol.should_aggregate(state.arrived, effective):
                 fire_round(trigger)
 
+        def pump_continuous() -> None:
+            # Fire while the buffer satisfies the policy.  Plain async keeps
+            # its aggregate-per-arrival semantics (a buffer of 1); FedBuff
+            # drains K members into one staleness-weighted update.
+            nonlocal completed
+            while self._buffer and c.protocol.should_aggregate(
+                len(self._buffer), max(1, len(c._learners))
+            ):
+                members = tuple(self._buffer)
+                self._buffer.clear()
+                self._log(
+                    AggregateFired(round_id=state.round_id, n_arrived=len(members),
+                                   trigger=members[-1], members=members),
+                    weighting=c.protocol.weighting(),
+                    model_version=c._model_version,
+                    bytes_down=self.telemetry.value("channel.bytes_moved"),
+                    bytes_up=self._up_bytes_seen,
+                )
+                self.aggregates_fired += 1
+                timings = RoundTimings(round_id=c.round_id)
+                timings.aggregation_s = self._aggregate(state, members)
+                timings.federation_round_s = timings.aggregation_s
+                out.append(timings)
+                c.history.append(timings)
+                c.round_id += 1
+                completed += 1
+                self._observe_round(timings)
+                if completed < target:
+                    # The members get the fresh model at once, off one shared
+                    # broadcast, with any learner owed a retry leg.
+                    redisp = [lid for lid in members if lid in c._learners]
+                    redisp += [lid for lid in self._retry_pending
+                               if lid in c._learners and lid not in redisp]
+                    b = c._broadcast()
+                    for lid in redisp:
+                        self._dispatch_one(lid, b)
+                self._retry_pending = []
+
         def drop(lid: str) -> None:
+            # A round-based cohort member that can no longer deliver.
             if not state.aggregated:
                 if lid in state.cohort and lid not in state.arrived_ids:
                     state.dropped.add(lid)
                 check_round_progress(lid)
 
+        def retry_or_drop(lid: str) -> None:
+            # Nothing was stored: a continuous learner gets a fresh leg at
+            # once; a round-based cohort shrinks its quorum.
+            if continuous:
+                if completed < target:
+                    self._dispatch_one(lid, c._broadcast())
+            else:
+                drop(lid)
+
         def handle_upload(event: UploadArrived) -> None:
-            self._outstanding -= 1
+            if not event.duplicate:
+                self._outstanding -= 1
             if event.error is not None:
                 self._log(event)
                 raise event.error
             lid = event.learner_id
             up = event.update.upload
-            fault = up.metadata.get("fault") if up is not None else None
-            if fault is not None:
-                # Never ingest a lost or duplicated upload as if it were ok.
-                raise NotImplementedError(
-                    f"the {fault!r} upload fate is not ported yet: enacting "
-                    "transport fault fates is slice B of the port (ROADMAP.md)"
-                )
             staleness = c._model_version - c._learner_versions.get(lid, 0)
             up_bytes = int(up.payload.nbytes) if up is not None else None
-            if up_bytes is not None:
+            fault = up.metadata.get("fault") if up is not None else None
+            if up_bytes is not None and not event.duplicate:
+                # A duplicate delivery re-uses the envelope: one wire send.
                 self._up_bytes_seen += up_bytes
             if lid not in c._learners:
                 # Orphaned: the learner deregistered while its task was in
@@ -442,11 +564,24 @@ class RoundEngine:
                 prof = c._learner_profiles.get(lid)
                 if prof is not None:
                     prof.observe_contribution(0.0)
-                drop(lid)
+                if not continuous:
+                    drop(lid)
                 return
-            self._log(event, staleness=staleness, up_bytes=up_bytes)
+            if fault == "lost":
+                # The uplink dropped the payload: nothing to ingest.
+                self._c_lost.add(1)
+                self._log(event, staleness=staleness, up_bytes=up_bytes, lost=True)
+                prof = c._learner_profiles.get(lid)
+                if prof is not None:
+                    prof.observe_contribution(0.0)
+                retry_or_drop(lid)
+                return
+            ctx: dict[str, Any] = {"staleness": staleness, "up_bytes": up_bytes}
+            if event.duplicate:
+                ctx["duplicate"] = True
+            self._log(event, **ctx)
             try:
-                if up is None:
+                if up is None and not event.duplicate:
                     # Envelope-less update: ingest runs the measured upload
                     # half itself, on this thread — mirror its bytes.
                     before = self.telemetry.value("channel.upload_bytes")
@@ -457,8 +592,8 @@ class RoundEngine:
                 else:
                     clip = c.ingest(event.update)
             except UploadRejectedError as rej:
-                # Nothing was stored: the quorum shrinks, the learner takes
-                # the full reputation penalty and an offense mark.
+                # Nothing was stored: the learner takes the full reputation
+                # penalty and an offense mark, then retries or drops out.
                 self._log(
                     UploadRejected(
                         round_id=int(event.update.round_id), learner_id=lid,
@@ -469,9 +604,9 @@ class RoundEngine:
                 if prof is not None:
                     prof.observe_contribution(0.0)
                 self._note_offense(lid)
-                drop(lid)
+                retry_or_drop(lid)
                 return
-            if clip is not None:
+            if clip is not None and not event.duplicate:
                 # Ingested rescaled: half reputation credit, an offense mark.
                 self._log(
                     UploadClipped(
@@ -480,9 +615,34 @@ class RoundEngine:
                     ),
                 )
                 self._note_offense(lid)
-            prof = c._learner_profiles.get(lid)
-            if prof is not None:
-                prof.observe_contribution(0.5 if clip is not None else 1.0)
+            if not event.duplicate:
+                prof = c._learner_profiles.get(lid)
+                if prof is not None:
+                    prof.observe_contribution(0.5 if clip is not None else 1.0)
+            if fault == "dup" and not event.duplicate:
+                # The uplink delivered twice: the second copy is handled
+                # inline, right after the first, so journal order never
+                # depends on worker timing.  The recursion does this
+                # learner's buffer/arrival bookkeeping and may fire an
+                # aggregate that advances the round, so this frame must not
+                # fall through (a phantom buffer member / spurious late carry).
+                self._c_dup.add(1)
+                handle_upload(dataclasses.replace(event, duplicate=True))
+                return
+            if continuous:
+                if lid not in self._buffer:
+                    self._buffer.append(lid)
+                pump_continuous()
+                return
+            if int(event.update.round_id) < c.round_id or state.aggregated:
+                # Straggler from an already-aggregated round (the deadline
+                # fired without it): folded into the next round's reduce.
+                self._c_late.add(1)
+                if lid not in self._late_carry:
+                    self._late_carry.append(lid)
+                if not state.aggregated:
+                    check_round_progress(lid)  # deadlock check, never a count
+                return
             if lid in state.cohort and lid not in state.arrived_ids:
                 state.arrived_ids.add(lid)
                 state.arrived += 1
@@ -490,17 +650,34 @@ class RoundEngine:
 
         try:
             state = self._start_round()
-            # Terminates when the target is met AND nothing is in flight.
+            if continuous:
+                # A buffer carried from an earlier run() may already satisfy
+                # the policy.
+                pump_continuous()
+            # Terminates when the target is met AND nothing is in flight or
+            # queued.
             while completed < target or self._outstanding > 0 or not self._events.empty():
                 event = self._events.get()
                 if isinstance(event, UploadArrived):
                     handle_upload(event)
+                elif isinstance(event, DeadlineExpired):
+                    if (not continuous and not state.aggregated
+                            and event.round_id == state.round_id and state.arrived > 0):
+                        self._c_deadline.add(1)
+                        self._log(event)
+                        fire_round(trigger=None, partial=True)
+                    else:  # stale timer (round already aggregated): log only
+                        self._log(event)
                 else:  # externally posted / unknown events: logged, not fatal
                     self._log(event)
         except BaseException as exc:
+            if state is not None and state.deadline_timer is not None:
+                state.deadline_timer.cancel()
             self._abort()
             self._log(EngineStopped(completed=completed, error=repr(exc)))
             raise
+        if state is not None and state.deadline_timer is not None:
+            state.deadline_timer.cancel()
         self._log(EngineStopped(completed=completed))
         return out
 
@@ -522,17 +699,39 @@ class RoundEngine:
         self._h_aggregate_s.observe(timings.aggregation_s)
         self._g_round.set(self.controller.round_id)
 
-    def _aggregate(self, state: _RoundState) -> float:
-        """Cohort FedAvg over the members that arrived; returns the seconds."""
+    def _take_late(self) -> list[str]:
+        """Consume the stragglers owed to the next round-based aggregate."""
+        late, self._late_carry = self._late_carry, []
+        return late
+
+    def _aggregate(self, state: _RoundState, members: tuple | None = None) -> float:
+        """Reduce per the policy's weighting hook; returns the seconds.
+
+        ``aggregate_scope == "buffer"`` (FedBuff) reduces exactly the
+        buffered ``members``; ``"staleness"`` weighting aggregates every
+        valid stored model with staleness-damped weights (the community
+        update); anything else is the cohort FedAvg over the members that
+        arrived plus any stragglers carried over from a deadline-expired
+        round.
+        """
+        c = self.controller
+        if getattr(c.protocol, "aggregate_scope", None) == "buffer":
+            return c.aggregate_buffer(list(members or ()))
+        if c.protocol.weighting() == "staleness":
+            return c.aggregate_community()
         live = [lid for lid in state.cohort if lid in state.arrived_ids]
-        return self.controller.aggregate_round(live)
+        seen = set(live)
+        extras = [lid for lid in self._take_late() if lid not in seen and lid in c._learners]
+        return c.aggregate_round(live + extras)
 
     def _abort(self) -> None:
         """Leave the engine re-runnable after an error escapes the loop:
-        wait for every in-flight task, then discard what is queued."""
+        wait for every in-flight task, then discard what is queued (stale
+        arrivals or pending duplicate deliveries must not leak into a later
+        ``run()``)."""
         while self._outstanding > 0:
             ev = self._events.get()
-            if isinstance(ev, UploadArrived):
+            if isinstance(ev, UploadArrived) and not ev.duplicate:
                 self._outstanding -= 1
         while not self._events.empty():
             self._events.get_nowait()

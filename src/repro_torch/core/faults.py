@@ -17,9 +17,9 @@ Fault taxonomy (all knobs on :class:`FaultSpec`):
 - **Upload faults** — loss (``upload_loss_rate``) and duplication
   (``upload_dup_rate``), decided per ``(learner, round)`` by
   :meth:`FaultInjector.upload_fate` and stamped into upload metadata by
-  :class:`FaultyChannel`.  Enacting them is the engine's work, which is
-  slice B of the port: until then the port's engine raises
-  ``NotImplementedError`` on such an arrival.
+  :class:`FaultyChannel`; the round engine (``core/engine.py``) enacts
+  them: a ``lost`` upload is never ingested, a ``dup`` one is delivered
+  twice (counted in ``engine.faults.uploads_lost`` / ``uploads_duplicated``).
 - **Stragglers** — a fixed ``straggler_rate`` subset of learners whose step
   time is inflated by a Pareto-tailed factor (``straggler_tail``).
 - **Bandwidth caps** — per-learner log-uniform caps between
@@ -301,7 +301,7 @@ class FaultyChannel(Channel):
     ``upload()`` consults the injector's :meth:`FaultInjector.upload_fate`
     for the sending ``(learner_id, round_id)`` and, when the fate is not
     ``"ok"``, writes ``metadata["fault"] = "lost"|"dup"`` before minting the
-    envelope (the engine enacts it; slice B of the port).
+    envelope (the round engine enacts it).
 
     Byzantine learners additionally have their payload corrupted in flight
     (:meth:`FaultInjector.corrupt`) with the fate stamped as

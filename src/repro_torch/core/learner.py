@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.scheduler import TrainTask
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import resolve_device, wait_queued
 from repro_torch.optim import Optimizer, apply_fedprox
 from repro_torch.tree import tree_map
 
@@ -150,12 +150,13 @@ class Learner:
         for _ in range(task.local_steps):
             batch = self._data_fn(task.batch_size)
             params, opt_state, loss = step(params, opt_state, batch)
-        # The card returns before it finishes: wait so seconds_per_step (what
-        # task sizing consumes) measures the training work, not its launch.
-        # Learner threads share the default stream, so on the card this also
-        # waits for the work other learners queued: seconds_per_step is a
-        # cohort-wide queue time until each learner gets a stream of its own.
-        synchronize(self.device)
+        # The card returns before it finishes: wait for this learner's last
+        # step, so seconds_per_step (what task sizing consumes) measures the
+        # training work, not its launch.  Learner threads share the default
+        # stream, so the wait also covers work other learners queued before
+        # that step (as the reference's block_until_ready on one device),
+        # never work queued after it.
+        wait_queued(self.device)
         elapsed = time.perf_counter() - t0
         buffer = upload = None
         if self._manifest is not None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "full_f32", "synchronize"]
+__all__ = ["resolve_device", "full_f32", "wait_queued"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -44,11 +44,17 @@ def full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (no-op on the CPU).
+def wait_queued(device: torch.device) -> None:
+    """Wait for the work this thread has queued on the device so far (no-op on
+    the CPU).
 
     PyTorch returns before the card finishes, so a host clock read without
-    this measures the enqueue, not the work.
+    this measures the enqueue, not the work.  A CUDA event recorded on the
+    current stream and waited on covers what was queued before it — as
+    ``jax.block_until_ready`` covers one result — and not the work other
+    threads queue later, which ``torch.cuda.synchronize`` would wait for too.
     """
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()

@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.kernels._build import count_launch, load_library
 
-__all__ = ["sorting_network", "masked_trimmed_mean_torch", "masked_trimmed_mean_cuda"]
+__all__ = ["sorting_network", "positive_nan", "masked_trimmed_mean_torch",
+           "masked_trimmed_mean_cuda"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,6 +54,17 @@ def sorting_network(np_: int) -> list[tuple[int, int]]:
     return pairs
 
 
+def positive_nan(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every NaN replaced by the positive quiet NaN.
+
+    ``torch.sort`` on the card puts a NaN with its sign bit set first and a
+    positive one last; on the host, and in the reference's ``jnp.sort``,
+    every NaN sorts last.  Canonicalizing before a sort makes both devices
+    order a column alike.  NaN-free inputs come back bit for bit.
+    """
+    return torch.where(torch.isnan(x), torch.nan, x)
+
+
 def _check_trim(trim_k: int, n: int) -> None:
     """The reference kernel's trace-time check: ``0 <= trim_k``, ``2·trim_k < N``."""
     if trim_k < 0 or 2 * trim_k >= n:
@@ -68,14 +80,15 @@ def masked_trimmed_mean_torch(
     (even NaN) in a dead row never reaches the sum; the surviving band is
     ranks ``[trim_k, n_valid - trim_k)``; a degenerate cohort
     (``n_valid <= 2·trim_k``) falls back to the untrimmed masked mean, and
-    no valid row gives 0.
+    no valid row gives 0.  Every NaN sorts last, on the card as on the host
+    (:func:`positive_nan`).
     """
     n = arena.shape[0]
     _check_trim(trim_k, n)
     m = torch.as_tensor(mask).to(arena.device, torch.float32)
     x = arena.to(torch.float32)
     live = m[:, None] > 0
-    s = torch.sort(torch.where(live, x, torch.inf), dim=0).values
+    s = torch.sort(positive_nan(torch.where(live, x, torch.inf)), dim=0).values
     n_valid = m.sum().to(torch.int32)
     ranks = torch.arange(n, device=arena.device, dtype=torch.int32)
     band = (ranks >= trim_k) & (ranks < n_valid - trim_k)

@@ -1,17 +1,21 @@
 """Federated training launcher of the port.
 
-Wires configs → model → learners → controller → driver and runs synchronous
-FedAvg rounds on the card:
+Wires configs → model → learners → controller → driver and runs a
+federation on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch housing-mlp --size 10m --learners 32 --rounds 3 \
-        --local-steps 4 --batch-size 100
+        --local-steps 4 --batch-size 100 --protocol sync
 
 ``--arch housing-mlp --size 10m`` is the paper's stress-test model (100
-hidden layers of width 320, 10,174,081 parameters).  ``--quantize`` ships
-the downlink through the int8 codec (``kernels/ops.QuantCodec``).
-``--device cpu`` runs on the host.  Other architectures are slice H of the
-port.
+hidden layers of width 320, 10,174,081 parameters).  ``--protocol`` picks
+the workflow: ``sync`` and ``semi_sync`` run ``--rounds`` rounds, ``async``
+``--rounds`` community updates.  ``--server-opt``, ``--selection``/
+``--fraction`` and ``--prox-mu`` set the server optimizer, cohort selection
+and FedProx term as in the reference's launcher.  ``--quantize`` ships the
+downlink through the int8 codec (``kernels/ops.QuantCodec``).  ``--device
+cpu`` runs on the host.  Other architectures are slice H of the port;
+``--secure`` and ``--checkpoint-dir`` are slices E and B-2.
 """
 
 from __future__ import annotations
@@ -25,7 +29,13 @@ import torch
 
 from repro_torch import optim as optim_mod
 from repro_torch.configs import housing_mlp
-from repro_torch.core import Driver, FederationEnv, Learner, TerminationCriteria
+from repro_torch.core import (
+    Driver,
+    FederationEnv,
+    Learner,
+    SelectionPolicy,
+    TerminationCriteria,
+)
 from repro_torch.data import iid_partition, make_housing_data
 from repro_torch.device import full_f32, resolve_device
 from repro_torch.models import mlp as mlp_model
@@ -84,6 +94,12 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--protocol", default="sync", choices=["sync", "semi_sync", "async"])
+    ap.add_argument("--server-opt", default="fedavg",
+                    choices=["fedavg", "sgdm", "fedadagrad", "fedyogi", "fedadam"])
+    ap.add_argument("--selection", default="all", choices=["all", "random", "stratified"])
+    ap.add_argument("--fraction", type=float, default=1.0)
+    ap.add_argument("--prox-mu", type=float, default=0.0)
     ap.add_argument("--quantize", action="store_true",
                     help="int8 transport codec (hand-written Hopper kernels)")
     ap.add_argument("--seed", type=int, default=0)
@@ -106,10 +122,13 @@ def main(argv: list[str] | None = None):
     initial = mlp_model.init_params(torch.Generator().manual_seed(args.seed), cfg, device)
 
     env = FederationEnv(
-        protocol="sync",
+        protocol=args.protocol,
         local_steps=args.local_steps,
         batch_size=args.batch_size,
         learning_rate=args.lr,
+        prox_mu=args.prox_mu,
+        selection=SelectionPolicy(kind=args.selection, fraction=args.fraction),
+        server_optimizer=args.server_opt,
         termination=TerminationCriteria(max_rounds=args.rounds),
         device=device,
     )

@@ -21,6 +21,8 @@ to f32 exactly and sum the band in sorted order, up to the torch
 reduction's grouping), on both sides of each of the sorting network's
 template sizes and of the switch to the rank-select past 64 rows, and at
 full width; each of quantize and the trimmed mean one device kernel a call.
+The robust rules' sorts (both medians, both trimmed means' plain versions)
+equal the host's bit for bit with a negative and a positive NaN in live rows.
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.configs import housing_mlp
 from repro_torch.core import Driver, FederationEnv, TerminationCriteria
+from repro_torch.core import aggregation as tagg
 from repro_torch.kernels import fedavg as tfed
 from repro_torch.kernels import fused_agg as tfused
 from repro_torch.kernels import ops as tops
@@ -398,3 +401,45 @@ def test_trimmed_mean_rounds_launch_the_kernel(cuda_device):
     assert trobust.masked_trimmed_mean_cuda.launches - before[0] == rounds
     assert tfed.masked_fedavg_cuda.launches == before[1]
     assert all(np.isfinite(h.metrics["eval_loss"]) for h in history)
+
+
+_NEG_NAN = float(np.array([0xFFC00000], np.uint32).view(np.float32)[0])  # sign bit set
+
+
+def _nan_rows(n, p, seed):
+    """Integer-valued rows (every sum exact in any order) with a negative and a
+    positive NaN in live rows, and NaN in the dead row 0."""
+    rng = np.random.default_rng(seed)
+    rows = torch.from_numpy(rng.integers(-50, 50, size=(n, p)).astype(np.float32))
+    rows[2, ::3] = _NEG_NAN
+    rows[5, 1::4] = float("nan")
+    rows[7, ::7] = _NEG_NAN
+    rows[0] = _NEG_NAN
+    mask = torch.ones(n)
+    mask[0] = 0.0
+    return rows, mask
+
+
+_ROBUST_SORTS = {
+    # n = 9 rows, row 0 dead: 8 live, so trim_k 2 leaves a band of 4 and
+    # every mean divides by a power of two (the card multiplies by 1/count)
+    "masked_coordinate_median": lambda r, m: tagg.masked_coordinate_median(r, m, m),
+    "masked_trimmed_mean_torch": lambda r, m: trobust.masked_trimmed_mean_torch(r, m, 2),
+    "trimmed_mean": lambda r, m: tagg.trimmed_mean(r[1:], 2),
+    "coordinate_median": lambda r, m: tagg.coordinate_median(r[1:]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ROBUST_SORTS))
+def test_robust_sorts_put_every_nan_last_on_the_card(cuda_device, name):
+    """``torch.sort`` on the card puts a negative NaN first; each robust sort
+    makes NaN positive first, so the card's result equals the host's bit for
+    bit.  NaN results are compared as NaN: the card's arithmetic returns its
+    own NaN payload."""
+    rows, mask = _nan_rows(9, 4099, seed=3)
+    fn = _ROBUST_SORTS[name]
+    want = fn(rows, mask)
+    got = fn(rows.to(cuda_device), mask.to(cuda_device)).cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))

@@ -210,18 +210,52 @@ def test_every_adversarial_fate_in_a_federation_matches_reference():
     assert all(tcount[f"engine.faults.adversarial.{f}"] > 0 for f in tfaults.ADVERSARIAL_FATES)
 
 
-@pytest.mark.parametrize("fate", ["lost", "dup"])
-def test_transport_fault_fate_is_refused_not_ingested(fate):
+def _fate_controller(side, fate):
     rate = {"upload_loss_rate": 1.0} if fate == "lost" else {"upload_dup_rate": 1.0}
-    channel = tfaults.FaultyChannel(
-        tfaults.FaultInjector(tfaults.FaultSpec(seed=1, **rate)), device="cpu")
-    _, learners = ttrain.build_housing_learners("100k", 2, 0, device="cpu")
-    ctrl = TController(protocol=TSync(1, 8, 0.01), channel=channel, device="cpu")
-    ctrl.set_initial_model(tpack.tree_from_numpy(jax.tree_util.tree_map(
-        np.asarray, jmlp.init_params(jax.random.key(0), housing_mlp.reduced())), "cpu"))
+    init = jmlp.init_params(jax.random.key(0), housing_mlp.reduced())
+    if side == "reference":
+        _, learners = jtrain.build_housing_learners("100k", 2, 0)
+        ctrl = JController(protocol=JSync(1, 8, 0.01), max_dispatch_workers=1,
+                           channel=jfaults.FaultyChannel(
+                               jfaults.FaultInjector(jfaults.FaultSpec(seed=1, **rate))))
+    else:
+        _, learners = ttrain.build_housing_learners("100k", 2, 0, device="cpu")
+        ctrl = TController(protocol=TSync(1, 8, 0.01), max_dispatch_workers=1, device="cpu",
+                           channel=tfaults.FaultyChannel(
+                               tfaults.FaultInjector(tfaults.FaultSpec(seed=1, **rate)),
+                               device="cpu"))
+        init = tpack.tree_from_numpy(jax.tree_util.tree_map(np.asarray, init), "cpu")
+    ctrl.set_initial_model(init)
     for learner in learners:
         ctrl.register_learner(learner)
-    with pytest.raises(NotImplementedError, match=f"'{fate}' upload fate.*slice B"):
-        ctrl.engine.run(rounds=1)
-    assert ctrl.arena.total_writes == 0  # nothing was ingested as if it were ok
-    ctrl.shutdown()
+    return ctrl
+
+
+@pytest.mark.parametrize("fate", ["lost", "dup"])
+def test_transport_fault_fate_is_refused_not_ingested(fate):
+    """The engine enacts the fates as the reference does: a lost upload is
+    never ingested (a cohort that loses every upload fails the round), a
+    duplicated one is ingested again into its own row and counted once
+    toward the quorum."""
+    out = {}
+    for side in ("reference", "port"):
+        ctrl = _fate_controller(side, fate)
+        if fate == "lost":
+            with pytest.raises(RuntimeError, match="dropped out"):
+                ctrl.engine.run(rounds=1)
+        else:
+            (t,) = ctrl.engine.run(rounds=1)
+            assert np.isfinite(t.metrics["eval_loss"])
+        fired = [e.n_arrived for e in ctrl.engine.event_log if type(e).__name__ == "AggregateFired"]
+        out[side] = (ctrl.arena.total_writes, fired, np.asarray(ctrl.global_buffer),
+                     {k: ctrl.telemetry.value(k) for k in (
+                         "engine.faults.uploads_lost", "engine.faults.uploads_duplicated",
+                         "engine.faults.uploads_late", "channel.upload_messages")})
+        ctrl.shutdown()
+    (tw, tfired, tbuf, tcount), (jw, jfired, jbuf, jcount) = out["port"], out["reference"]
+    assert (tw, tfired, tcount) == (jw, jfired, jcount)
+    np.testing.assert_allclose(tbuf, jbuf, rtol=1e-4, atol=1e-5)
+    if fate == "lost":
+        assert tw == 0 and tfired == [] and tcount["engine.faults.uploads_lost"] == 2
+    else:
+        assert tw == 4 and tfired == [2] and tcount["engine.faults.uploads_duplicated"] == 2
