@@ -20,7 +20,10 @@ nothing of the JAX package.  Phases, each printing its own lines:
              unpadded rows, a last group of 129 and tails at 1 and 7 mod 8,
              in one launch that writes the wire's layout; the encoder's wire
              bytes); the fused dequant-into-aggregate (atol=rtol=2e-5; NaN
-             and 1e30 dead-row scales, zero weights, the empty mask); the
+             and 1e30 dead-row scales, zero weights, the empty mask; on the
+             timed inputs two launches bit-identical and bit-identical to
+             FedAvg on the dequantized rows; as diagnostics, one device
+             kernel a call and 8 of 32 rows live timed beside all live); the
              masked trimmed mean (atol 1e-5, plus rtol 1e-5 at full width;
              N from 2 to 1000 across the sorting network's template sizes
              and the switch to the rank-select past 64, several ``trim_k``
@@ -188,7 +191,7 @@ def main() -> None:
                       "nvcc_s": built.seconds,
                       "flags": " ".join(_build.NVCC_FLAGS)}), flush=True)
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             print("  ptxas:", line.strip(), flush=True)
 
     # -- 3. kernels -----------------------------------------------------------
@@ -197,7 +200,7 @@ def main() -> None:
     timing = time_kernels(kfed, dev, errs)
     errs.update(check_quantize(kq, dev))
     errs["masked_fedavg_q8"] = check_fused(kfu, dev)
-    timing.update(time_int8_kernels(kq, kfu, dev, errs))
+    timing.update(time_int8_kernels(kq, kfed, kfu, dev, errs))
     errs["masked_trimmed_mean"] = check_trimmed_mean(krob, dev)
     timing.update(time_trimmed_mean(krob, dev, errs))
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t_phase}),
@@ -463,7 +466,7 @@ def main() -> None:
         ("fedavg", "fedavg.cu", "src/repro/kernels/fedavg.py:126"),
         ("quantize", "quantize.cu", "src/repro/kernels/quantize.py:105"),
         ("dequantize", "quantize.cu", "src/repro/kernels/quantize.py:143"),
-        ("masked_fedavg_q8", "fused_agg.cu", "src/repro/kernels/fused_agg.py:150"),
+        ("masked_fedavg_q8", "fedavg.cu", "src/repro/kernels/fused_agg.py:150"),
         ("masked_trimmed_mean", "robust.cu", "src/repro/kernels/robust.py:80"),
     ):
         assert launches[name] > 0, (name, launches)
@@ -1091,14 +1094,16 @@ def time_kernels(kfed, dev, errs: dict) -> dict:
     return out
 
 
-def time_int8_kernels(kq, kfu, dev, errs: dict) -> dict:
+def time_int8_kernels(kq, kfed, kfu, dev, errs: dict) -> dict:
     """The int8 kernels at the main path's shapes: quantize as every upload's
     encode calls it, ``ops.quantize`` on one learner's unpadded (10,174,081,)
     row at group 256, and dequantize on the (10,174,464,) int8 row and its
     (39,744,) scales (the int8-wire leg's decode), each on 8 inputs in
     rotation (325 MB and 83 MB, so no call finds its input in the 50 MB L2);
     the fused reduce on the (32, 10,174,464) int8 arena with its (32, 39,744)
-    scales.  Each is held against its plain version on the very inputs it is
+    scales (bit-identical across launches and to kernel 1 on the dequantized
+    rows; one device kernel a call; timed with 8 of 32 rows live beside all
+    live).  Each is held against its plain version on the very inputs it is
     timed on first."""
     from repro_torch.core.transport import Int8UploadCodec
     from repro_torch.kernels import ops
@@ -1150,9 +1155,33 @@ def time_int8_kernels(kq, kfu, dev, errs: dict) -> dict:
     plain = lambda: kfu.masked_fedavg_q8_torch(aq, ascale, w, m)  # noqa: E731
     errs["masked_fedavg_q8"] = max(errs["masked_fedavg_q8"],
                                    _close(kern(), plain(), 2e-5, what="q8 timed inputs"))
+    _expect(_same_bits(kern(), kern()), "masked_fedavg_q8: two launches differ on the timed inputs")
+    # The same ŵ, products and fold order as kernel 1 on the dequantized rows.
+    _expect(_same_bits(kern(), kfed.masked_fedavg_cuda(kfu.dequant_rows(aq, ascale), w, m)),
+            "masked_fedavg_q8 differs from masked_fedavg on the dequantized timed rows")
     out["masked_fedavg_q8"] = _timed(
         "masked_fedavg_q8", kern, plain, None,
         N_MAIN * p + 4 * N_MAIN * groups + 4 * p + 8 * N_MAIN, 3 * N_MAIN * p, [N_MAIN, p])
+    _one_kernel_a_call("masked_fedavg_q8", _count_device_kernels("masked_fedavg_q8", kern,
+                                                                 [N_MAIN, p]),
+                       "fedavg_kernel", 10)
+    # Diagnostic: dead rows are never loaded, so with the FedBuff leg's 8
+    # live rows of 32 the bytes read fall to a quarter, the output's do not
+    # (in turns: live, 8 live, 8 live, live).
+    eight = torch.zeros((N_MAIN,), device=dev)
+    eight[::4] = 1.0
+    sparse = lambda: kfu.masked_fedavg_q8_cuda(aq, ascale, w, eight)  # noqa: E731
+    _close(sparse(), kfu.masked_fedavg_q8_torch(aq, ascale, w, eight), 2e-5,
+           what="masked_fedavg_q8 8 of 32 live")
+    live_a, eight_a, eight_b, live_b = (_time_ms(f) for f in (kern, sparse, sparse, kern))
+    print(json.dumps({"phase": "kernels", "diagnostic": "masked_fedavg_q8 8 of 32 rows live",
+                      "shape": [N_MAIN, p], "ms_8_live": [eight_a, eight_b],
+                      "ms_all_live": [live_a, live_b],
+                      "ratio": min(eight_a, eight_b) / min(live_a, live_b),
+                      "bound_ms_8_live": _bound(8 * p + 4 * 8 * groups + 4 * p + 8 * N_MAIN,
+                                                3 * 8 * p)[0],
+                      "bound_ms_all_live": out["masked_fedavg_q8"]["bound_ms"]}), flush=True)
+    _count_device_kernels("masked_fedavg_q8 8 of 32 live", sparse, [N_MAIN, p])
     del aq, ascale
     torch.cuda.empty_cache()
     return out

@@ -14,8 +14,8 @@ masked kernel, so no einsum stays on a CUDA path.
 
 The int8 arena's rules (:func:`masked_fedavg_q8`,
 :func:`masked_staleness_q8`) reduce through ``ops.masked_fedavg_q8``: the
-fused dequant-into-aggregate kernel on the card (``kernels/csrc/fused_agg.cu``),
-the plain dequantize-``where``-einsum on the host.
+fused dequant-into-aggregate kernel on the card (``kernels/csrc/fedavg.cu``'s
+int8 row type), the plain dequantize-``where``-einsum on the host.
 
 The robust rules are order statistics, weight-blind by design.
 :func:`masked_trimmed_mean` reduces through ``ops.masked_trimmed_mean``: the

@@ -1,44 +1,68 @@
-// Masked weighted FedAvg over the (N, P) arena, hand-written for Hopper.
+// Masked weighted FedAvg over the (N, P) arena, hand-written for Hopper: f32,
+// bf16 and int8 rows through one ring.
 //
 // Replaces the TPU kernels of the reference:
-//   repro/kernels/fedavg.py::masked_fedavg_pallas (_masked_fedavg_kernel)
-//   repro/kernels/fedavg.py::fedavg_pallas        (_fedavg_kernel)
-// One kernel serves both, templated on the row type (f32, bf16); the mask is
-// optional.
+//   repro/kernels/fedavg.py::masked_fedavg_pallas       (_masked_fedavg_kernel)
+//   repro/kernels/fedavg.py::fedavg_pallas              (_fedavg_kernel)
+//   repro/kernels/fused_agg.py::masked_fedavg_q8_pallas (_masked_fedavg_q8_kernel)
+// One kernel serves all three, templated on the row type (f32, bf16, or int8
+// values with one f32 scale per group of columns); the mask is optional for
+// f32 and bf16.
 //
 //   out[p] = sum over live n, ascending, of  w_hat[n] * x[n, p]
+//   int8:    x[n, p] = q[n, p] * s[n, p / group], rounded to f32
 //
-// with w_hat normalized inside the kernel exactly as the wrapper's plain
+// with w_hat normalized inside the kernel exactly as the wrappers' plain
 // versions do (repro_torch/kernels/fedavg.py):
 //   masked:   w*m / sum(w*m) when that sum is > 0, else m / max(sum(m), 1);
 //   unmasked: w / sum(w)     when that sum is > 0, else 1/N;
 // and live meaning m > 0 (every row when unmasked).  Accumulation is f32 in
 // registers with fmaf, over live rows in ascending order, with no atomics, so
-// two launches on the same inputs are bit-identical.
+// two launches on the same inputs are bit-identical.  An int8 row is
+// dequantized value by value and rounded (the reference's q * s) before its
+// fmaf, so the fused reduce equals this kernel's f32 reduce of the
+// dequantized rows bit for bit: the same w_hat, the same products, the same
+// fold order.
 //
-// Bound on the card: 2 FLOP per element read (about 0.5 FLOP per byte for
-// f32), far below the H100's f32 ridge, so the pass is bound by HBM:
-//   t >= (N * P * sizeof(row) + 4 * P) / 3.35 TB/s
-// which for 32 learners x 10,174,464 f32 columns is 0.4009 ms (the bound
-// chip_smoke.py counts; it adds the 8N bytes of weights and mask).  The
-// design spends its effort on keeping HBM busy with only the bytes that
-// bound counts, in one launch:
+// Bound on the card: 2 FLOP per element read for f32 and bf16, 3 for int8
+// (the dequantizing multiply), far below the H100's f32 ridge, so the pass is
+// bound by HBM, reading only the live rows:
+//   f32, bf16: t >= (L * P * sizeof(row) + 4 * P) / 3.35 TB/s
+//   int8:      t >= (L * P + 4 * L * P / group + 4 * P) / 3.35 TB/s
+// for L live rows (chip_smoke.py adds the 8N bytes of weights and mask).  At
+// 32 live rows of 10,174,464 columns that is 0.4009 ms for f32 and, at group
+// 256, 0.1109 ms for int8 (0.0368 ms with 8 of 32 live).  An int8 value costs
+// about 4.5 instructions (one PRMT, one FADD, one FMUL, one FFMA and a share
+// of the sign flip and the shared-memory load), about 49 us of issue a call
+// at 32 live rows on 132 SMs, so the int8 pass is bound by HBM too, as long as
+// the consumers spend nothing on loads or addresses.  The design spends its
+// effort on keeping HBM busy with only the bytes that bound counts, in one
+// launch:
 //   * one launch per aggregate: every block sums w*m (or w) in one fixed
 //     order (strided partials, a fixed shuffle tree, warps summed in order),
 //     so every block holds the same w_hat bit for bit, and stages w_hat and
 //     the ascending list of live rows in shared memory.  Up to kStageCap
-//     (2,048) rows are staged; past that the producer reads the mask and weights
-//     from global memory (L1-resident) and finds live rows by warp ballots,
-//     tile by tile, with the same arithmetic;
+//     (2,048) rows are staged; past that the producer reads the mask and
+//     weights from global memory (L1-resident) and finds live rows by warp
+//     ballots, tile by tile, with the same arithmetic;
 //   * bytes arrive by cp.async.bulk into a 3-stage ring in shared memory: a
-//     persistent grid of blocks walks 32 KB column tiles (of each row);
-//     one producer lane issues one bulk copy per live row into the next
-//     stage, a 32 KB slot, and posts its bytes on the stage's full
-//     mbarrier; eight consumer warps wait on it, fold the row into f32
-//     registers and release the stage on its empty mbarrier.  Up to 96 KB
-//     per block are in flight without a register holding any of them, and
-//     dead rows are never loaded, so the bytes read scale with the live
+//     persistent grid of blocks walks column tiles (32 KB of each f32 or
+//     bf16 row, 16 KB of each int8 row: 16,384 columns, so that a consumer
+//     thread holds 64 accumulators as it does for bf16); one producer lane
+//     issues one bulk copy per live row into the next stage (and, for int8,
+//     one more of the tile's scales, 256 bytes at group 256, into the stage's
+//     scale slot) and posts their bytes on the stage's full mbarrier; eight
+//     consumer warps wait on it, fold the row into f32 registers and release
+//     the stage on its empty mbarrier.  No register holds a byte in flight,
+//     and dead rows are never loaded, so the bytes read scale with the live
 //     rows;
+//   * int8 -> f32 without the I2F unit, whose rate is a small fraction of the
+//     FMA rate: flipping each byte's sign bit gives v + 128 in 0..255,
+//     __byte_perm places it in the mantissa of 2^23, and subtracting
+//     2^23 + 128 leaves v exactly (one PRMT and one FADD per value).  A
+//     consumer's 16 columns lie in at most two groups (halves of 8 columns,
+//     the group being a multiple of 8), whose scales it reads from the scale
+//     slot at offsets it computes once a tile;
 //   * aligned windows serve unaligned rows: a bulk copy needs 16-byte-aligned
 //     source, destination and size, so each (row, tile) copies the window
 //     that covers the tile, its start rounded down to 128 bytes and its end
@@ -49,23 +73,24 @@
 //     (4 * (r mod 4) mod 16 for the stack leg's 10,174,081-float rows) by a
 //     funnel shift of two 16-byte words.  What the clip cuts off (under 16
 //     bytes at either edge) the producer loads with plain loads into the
-//     same slot.  This one path serves aligned and unaligned strides, f32
-//     and bf16, and a view whose data_ptr is not 16-byte aligned;
-//     tile_window() in fedavg.py is the same arithmetic, and the CPU tests
-//     hold it to exactly-once coverage;
+//     same slot.  This one path serves aligned and unaligned strides, f32,
+//     bf16, int8 values and their scales, and a view whose data_ptr is not
+//     16-byte aligned; tile_window() in fedavg.py is the same arithmetic, and
+//     the CPU tests hold it to exactly-once coverage;
 //   * the output is written with 16-byte stores, a ragged last unit with
 //     scalar ones.
-// The launch plan is fixed (32 KB tiles, 3 stages, 2 blocks per SM, chosen
-// by measurement on the card: PERF.md); fedavg.py's launch_plan() sizes the
-// grid and the dynamic shared memory, and this file refuses any other tile,
-// stage count or shared memory than Layout below.
+// The launch plan is fixed (3 stages, 2 blocks per SM, the tiles above,
+// chosen by measurement on the card: PERF.md); fedavg.py's launch_plan()
+// sizes the grid and the dynamic shared memory, and this file refuses any
+// other tile, stage count or shared memory than Layout below.
 //
 // Plain C interface (bound with ctypes): the wrapper allocates the output,
-// the kernel runs on the caller's stream and the entry returns
+// the kernel runs on the caller's stream and each entry returns
 // cudaGetLastError() so a refused launch is reported.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
 
 
 namespace {
@@ -73,10 +98,8 @@ namespace {
 constexpr int kConsumers = 256;                 // 8 consumer warps
 constexpr int kThreads = kConsumers + 32;       // + 1 producer warp (warp 0)
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileBytes = 32768;               // fedavg.py TILE_BYTES, of each row
-constexpr int kUnits = kTileBytes / (16 * kConsumers);  // 16-byte units per consumer
+constexpr int kBlocksPerSm = 2;                 // fedavg.py BLOCKS_PER_SM
 constexpr int kStages = 3;                      // fedavg.py STAGES
-constexpr int kSlotBytes = kTileBytes + 128;    // a window starts up to 112 bytes early
 constexpr int kStageCap = 2048;                 // fedavg.py STAGE_CAP
 constexpr int kMiscBytes = 512;                 // fedavg.py _MISC_BYTES
 
@@ -84,10 +107,18 @@ using u64 = unsigned long long;  // byte addresses
 __device__ __forceinline__ u64 umax(u64 a, u64 b) { return a > b ? a : b; }
 __device__ __forceinline__ u64 umin(u64 a, u64 b) { return a < b ? a : b; }
 
-// Row element types: float, or bf16 held as its raw 16 bits.
+// int8 byte k of w (sign bit already flipped) as an exact float.
+__device__ __forceinline__ float byte_to_f32(uint32_t w, int k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | k)), 8388736.0f);
+}
+
+// Row types: what one 16-byte unit of a row holds, and the tile of each row
+// (fedavg.py TILE_BYTES, TILE_BYTES_Q8) that fills one ring slot.
 struct F32 {
   using T = uint32_t;
   static constexpr int kVec = 4;  // elements per 16 bytes
+  static constexpr int kTileBytes = 32768;
+  static constexpr bool kScaled = false;
   __device__ static void unpack(const uint4& v, float (&x)[kVec]) {
     x[0] = __uint_as_float(v.x);
     x[1] = __uint_as_float(v.y);
@@ -99,6 +130,8 @@ struct F32 {
 struct BF16 {
   using T = uint16_t;
   static constexpr int kVec = 8;
+  static constexpr int kTileBytes = 32768;
+  static constexpr bool kScaled = false;
   // Little-endian: element 2k is the low half of word k.
   __device__ static void unpack(const uint4& v, float (&x)[kVec]) {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -110,19 +143,53 @@ struct BF16 {
   }
 };
 
-// Dynamic shared memory, in this order (fedavg.py smem_bytes()): the ring's
-// slots, each slot's weight and byte offset, a full and an empty barrier per
-// stage, misc (floats 0-50: warp partials and the sums), then (staged) w_hat
-// and the live list.
-struct Layout {
-  int64_t hw, hd, bars, misc, what, live, total;
+// int8 values, exact as floats; their scales come from the stage's scale slot.
+struct Q8 {
+  using T = uint8_t;
+  static constexpr int kVec = 16;
+  static constexpr int kTileBytes = 16384;
+  static constexpr bool kScaled = true;
+  __device__ static void unpack(const uint4& v, float (&x)[kVec]) {
+    const uint32_t w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
+                           v.w ^ 0x80808080u};
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) x[j] = byte_to_f32(w[j >> 2], j & 3);
+  }
 };
 
-__host__ __device__ inline Layout layout(int n, bool staged) {
+__host__ __device__ constexpr int64_t round_up(int64_t x, int64_t to) {
+  return (x + to - 1) / to * to;
+}
+
+// A slot of the ring: one row's tile, its window starting up to 112 bytes early.
+template <typename R>
+__host__ __device__ constexpr int64_t slot_bytes() {
+  return R::kTileBytes + 128;
+}
+
+// A scale slot (int8 only): the groups one tile's columns touch, at most
+// ceil(tile / group) + 1 of them, 128 bytes early at most, in a multiple of
+// 128 bytes (fedavg.py scale_slot_bytes()).
+__host__ __device__ inline int64_t scale_slot_bytes(int64_t tile_cols, int group) {
+  return 128 + round_up(4 * ((tile_cols + group - 1) / group + 1), 128);
+}
+
+// Dynamic shared memory, in this order (fedavg.py smem_bytes()): the ring's
+// slots, the scale slots (int8), each slot's weight, byte offset and scale
+// byte offset (int8), a full and an empty barrier per stage (8-byte
+// aligned), misc (floats 0-50: warp partials and the sums), then (staged)
+// w_hat and the live list.
+struct Layout {
+  int64_t sring, hw, hd, sd, bars, misc, what, live, total;
+};
+
+__host__ __device__ inline Layout layout(int n, bool staged, int64_t slot, int64_t sslot) {
   Layout l;
-  l.hw = static_cast<int64_t>(kStages) * kSlotBytes;
+  l.sring = kStages * slot;
+  l.hw = l.sring + kStages * sslot;
   l.hd = l.hw + 4 * kStages;
-  l.bars = l.hd + 4 * kStages;
+  l.sd = l.hd + 4 * kStages;
+  l.bars = round_up(l.sd + (sslot ? 4 * kStages : 0), 8);
   l.misc = l.bars + 16 * kStages;
   l.what = l.misc + kMiscBytes;
   l.live = l.what + (staged ? 4LL * n : 0);
@@ -130,10 +197,27 @@ __host__ __device__ inline Layout layout(int n, bool staged) {
   return l;
 }
 
+// One strided (N, cols) view: its first byte, row stride and element size,
+// and its extent [lo, hi), the first byte to one past the last row's last.
+struct View {
+  u64 base, lo, hi;
+  int64_t row_bytes;
+  int esize;
+};
+
+__host__ inline View make_view(const void* ptr, int64_t row_stride, int esize, int n,
+                               int64_t cols) {
+  View v;
+  v.base = v.lo = reinterpret_cast<u64>(ptr);
+  v.row_bytes = row_stride * esize;
+  v.esize = esize;
+  v.hi = v.base + static_cast<u64>(((n - 1) * row_stride + cols) * esize);
+  return v;
+}
+
 struct Params {
-  u64 base;                 // arena data_ptr
-  int64_t row_bytes;        // row stride in bytes
-  int esize;                // bytes per element
+  View x;                   // the rows
+  View s;                   // int8: the scales, one f32 per group
   const float* w;
   const float* m;           // nullptr when unmasked
   float* out;
@@ -142,7 +226,8 @@ struct Params {
   int64_t tile_cols;
   int64_t n_tiles;
   bool staged;
-  u64 lo, hi;               // the view's extent: first byte, one past the last
+  int group;                // int8: columns per scale
+  int64_t sslot;            // int8: scale slot bytes (0 otherwise)
 };
 
 // One row's window of one tile (fedavg.py tile_window, the same arithmetic).
@@ -151,14 +236,14 @@ struct Window {
   uint32_t nbytes, dst, delta;
 };
 
-__device__ __forceinline__ Window tile_window(const Params& q, int row, int64_t c0,
+__device__ __forceinline__ Window tile_window(const View& x, int row, int64_t c0,
                                               int64_t c1) {
   Window v;
-  v.a = q.base + static_cast<u64>(row * q.row_bytes + c0 * q.esize);
-  v.b = q.base + static_cast<u64>(row * q.row_bytes + c1 * q.esize);
+  v.a = x.base + static_cast<u64>(row * x.row_bytes + c0 * x.esize);
+  v.b = x.base + static_cast<u64>(row * x.row_bytes + c1 * x.esize);
   const u64 origin = v.a & ~127ull;  // the slot's first byte maps here
-  const u64 ws = umax(origin, (q.lo + 15) & ~15ull);
-  const u64 we = umax(umin((v.b + 15) & ~15ull, q.hi & ~15ull), ws);
+  const u64 ws = umax(origin, (x.lo + 15) & ~15ull);
+  const u64 we = umax(umin((v.b + 15) & ~15ull, x.hi & ~15ull), ws);
   v.src = ws;
   v.nbytes = static_cast<uint32_t>(we - ws);
   v.dst = static_cast<uint32_t>(ws - origin);
@@ -166,6 +251,16 @@ __device__ __forceinline__ Window tile_window(const Params& q, int row, int64_t 
   v.head_end = umin(umax(ws, v.a), v.b);
   v.tail_start = umin(umax(we, v.a), v.b);
   return v;
+}
+
+// The edges a window's clip cut off, under 16 bytes each: plain loads into
+// the slot, at the same offsets as the bulk copy's bytes.
+template <typename T>
+__device__ __forceinline__ void load_edges(unsigned char* slot, const Window& v) {
+  for (u64 x = v.a; x < v.head_end; x += sizeof(T))
+    *reinterpret_cast<T*>(slot + v.delta + (x - v.a)) = *reinterpret_cast<const T*>(x);
+  for (u64 x = v.tail_start; x < v.b; x += sizeof(T))
+    *reinterpret_cast<T*>(slot + v.delta + (x - v.a)) = *reinterpret_cast<const T*>(x);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -240,16 +335,20 @@ __device__ __forceinline__ bool row_live(const Params& q, int i) {
 }
 
 template <typename R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 fedavg_kernel(const Params q) {
   constexpr int kVec = R::kVec;
+  constexpr int kUnits = R::kTileBytes / (16 * kConsumers);  // 16-byte units per consumer
+  constexpr int64_t kSlot = slot_bytes<R>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = layout(q.n, q.staged);
+  const Layout lay = layout(q.n, q.staged, kSlot, q.sslot);
   unsigned char* ring = smem;
+  unsigned char* sring = smem + lay.sring;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
   uint64_t* empty = full + kStages;
   float* s_hw = reinterpret_cast<float*>(smem + lay.hw);
   uint32_t* s_hd = reinterpret_cast<uint32_t*>(smem + lay.hd);
+  uint32_t* s_sd = reinterpret_cast<uint32_t*>(smem + lay.sd);
   float* misc = reinterpret_cast<float*>(smem + lay.misc);
   int* misc_i = reinterpret_cast<int*>(misc);
   float* s_what = reinterpret_cast<float*>(smem + lay.what);
@@ -330,6 +429,9 @@ fedavg_kernel(const Params q) {
     for (int64_t tile = blockIdx.x; tile < q.n_tiles; tile += gridDim.x) {
       const int64_t c0 = tile * q.tile_cols;
       const int64_t c1 = min(c0 + q.tile_cols, q.p);
+      // int8: the groups [g0, g1) that the tile's columns touch.
+      const int64_t g0 = R::kScaled ? c0 / q.group : 0;
+      const int64_t g1 = R::kScaled ? (c1 + q.group - 1) / q.group : 0;
       int row = -1;
       for (int k = 0; k < n_live; ++k) {
         if (q.staged) {
@@ -345,18 +447,23 @@ fedavg_kernel(const Params q) {
         }
         if (lane == 0) {
           bar_wait(empty + stage, phase ^ 1u);
-          const Window v = tile_window(q, row, c0, c1);
-          unsigned char* slot = ring + static_cast<int64_t>(stage) * kSlotBytes;
+          const Window v = tile_window(q.x, row, c0, c1);
+          unsigned char* slot = ring + static_cast<int64_t>(stage) * kSlot;
           s_hw[stage] = q.staged ? s_what[row] : weight_hat(q, row, total, msum);
           s_hd[stage] = v.delta;
-          // The edges the clip cut off, under 16 bytes each: plain loads.
-          using T = typename R::T;
-          for (u64 x = v.a; x < v.head_end; x += sizeof(T))
-            *reinterpret_cast<T*>(slot + v.delta + (x - v.a)) = *reinterpret_cast<const T*>(x);
-          for (u64 x = v.tail_start; x < v.b; x += sizeof(T))
-            *reinterpret_cast<T*>(slot + v.delta + (x - v.a)) = *reinterpret_cast<const T*>(x);
-          bar_arrive_tx(full + stage, v.nbytes);
+          load_edges<typename R::T>(slot, v);
+          uint32_t bytes = v.nbytes;
+          Window sv{};
+          unsigned char* sslot = sring + static_cast<int64_t>(stage) * q.sslot;
+          if constexpr (R::kScaled) {
+            sv = tile_window(q.s, row, g0, g1);
+            s_sd[stage] = sv.delta;
+            load_edges<float>(sslot, sv);
+            bytes += sv.nbytes;
+          }
+          bar_arrive_tx(full + stage, bytes);
           if (v.nbytes) bulk_copy(slot + v.dst, v.src, v.nbytes, full + stage);
+          if (sv.nbytes) bulk_copy(sslot + sv.dst, sv.src, sv.nbytes, full + stage);
         }
         if (++stage == kStages) { stage = 0; phase ^= 1u; }
       }
@@ -369,6 +476,21 @@ fedavg_kernel(const Params q) {
     for (int64_t tile = blockIdx.x; tile < q.n_tiles; tile += gridDim.x) {
       const int64_t c0 = tile * q.tile_cols;
       const int64_t c1 = min(c0 + q.tile_cols, q.p);
+      // int8: each unit's two halves of 8 columns lie in one group each; their
+      // scales sit at these float offsets into the tile's scale window (a
+      // unit past the tile's end reads its last group and is never stored).
+      int goff[kUnits][2];
+      if constexpr (R::kScaled) {
+        const uint32_t r0 = static_cast<uint32_t>(c0 % q.group);
+        const uint32_t last = static_cast<uint32_t>(c1 - c0 - 1);
+        const uint32_t g = static_cast<uint32_t>(q.group);
+#pragma unroll
+        for (int u = 0; u < kUnits; ++u) {
+          const uint32_t k = static_cast<uint32_t>((ct + u * kConsumers) * kVec);
+          goff[u][0] = static_cast<int>((r0 + min(k, last)) / g);
+          goff[u][1] = static_cast<int>((r0 + min(k + 8, last)) / g);
+        }
+      }
       float acc[kUnits][kVec];
 #pragma unroll
       for (int u = 0; u < kUnits; ++u)
@@ -379,12 +501,19 @@ fedavg_kernel(const Params q) {
         const float wk = s_hw[stage];
         const uint32_t dk = s_hd[stage];
         const uint4* s =
-            reinterpret_cast<const uint4*>(ring + static_cast<int64_t>(stage) * kSlotBytes) +
+            reinterpret_cast<const uint4*>(ring + static_cast<int64_t>(stage) * kSlot) +
             (dk >> 4) + ct;
+        const float* sc = reinterpret_cast<const float*>(
+            sring + static_cast<int64_t>(stage) * q.sslot + (R::kScaled ? s_sd[stage] : 0));
 #pragma unroll
         for (int u = 0; u < kUnits; ++u) {
           float x[kVec];
           R::unpack(shifted(s + u * kConsumers, dk & 15), x);
+          if constexpr (R::kScaled) {  // dequantize first, rounded, as the reference does
+            const float lo = sc[goff[u][0]], hi = sc[goff[u][1]];
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) x[e] = __fmul_rn(x[e], e < 8 ? lo : hi);
+          }
 #pragma unroll
           for (int e = 0; e < kVec; ++e) acc[u][e] = fmaf(wk, x[e], acc[u][e]);
         }
@@ -411,8 +540,19 @@ fedavg_kernel(const Params q) {
   }
 }
 
+// Check the plan against this file's and launch on the caller's stream.
 template <typename R>
-cudaError_t launch(const Params& q, int grid, int smem, cudaStream_t stream) {
+cudaError_t launch(Params& q, int grid, int tile_bytes, int stages, int smem,
+                   cudaStream_t stream) {
+  if (tile_bytes != R::kTileBytes || stages != kStages) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(q.out) % 16) return cudaErrorInvalidValue;
+  q.tile_cols = R::kTileBytes / q.x.esize;
+  q.n_tiles = (q.p + q.tile_cols - 1) / q.tile_cols;
+  q.staged = q.n <= kStageCap;
+  q.sslot = R::kScaled ? scale_slot_bytes(q.tile_cols, q.group) : 0;
+  if (layout(q.n, q.staged, slot_bytes<R>(), q.sslot).total != smem) return cudaErrorInvalidValue;
+  if (q.p == 0) return cudaSuccess;
+  if (grid < 1 || grid > q.n_tiles) return cudaErrorInvalidConfiguration;
   auto kernel = fedavg_kernel<R>;
   // Dynamic shared memory above 48 KB is granted only when asked for, per device.
   const cudaError_t err =
@@ -433,30 +573,43 @@ extern "C" int repro_fedavg(const void* arena, int dtype, long long row_stride,
                             const void* weights, const void* mask, void* out, int n,
                             long long p, int grid, int tile_bytes, int stages,
                             int smem_bytes, void* stream) {
-  if (n < 1 || p < 0 || row_stride < p || tile_bytes != kTileBytes || stages != kStages)
-    return cudaErrorInvalidValue;
   const int esize = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
-  if (esize == 0 || reinterpret_cast<uintptr_t>(arena) % esize ||
-      reinterpret_cast<uintptr_t>(out) % 16)
+  if (n < 1 || p < 0 || row_stride < p || esize == 0 ||
+      reinterpret_cast<uintptr_t>(arena) % esize)
     return cudaErrorInvalidValue;
-  const bool staged = n <= kStageCap;
-  if (layout(n, staged).total != smem_bytes) return cudaErrorInvalidValue;
-  if (p == 0) return cudaSuccess;
-  Params q;
-  q.base = reinterpret_cast<u64>(arena);
-  q.row_bytes = row_stride * esize;
-  q.esize = esize;
+  Params q{};
+  q.x = make_view(arena, row_stride, esize, n, p);
   q.w = static_cast<const float*>(weights);
   q.m = static_cast<const float*>(mask);
   q.out = static_cast<float*>(out);
   q.n = n;
   q.p = p;
-  q.tile_cols = kTileBytes / esize;
-  q.n_tiles = (p + q.tile_cols - 1) / q.tile_cols;
-  q.staged = staged;
-  q.lo = q.base;
-  q.hi = q.base + static_cast<u64>(((n - 1) * row_stride + p) * esize);
-  if (grid < 1 || grid > q.n_tiles) return cudaErrorInvalidConfiguration;
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<F32>(q, grid, smem_bytes, s) : launch<BF16>(q, grid, smem_bytes, s);
+  return dtype == 0 ? launch<F32>(q, grid, tile_bytes, stages, smem_bytes, s)
+                    : launch<BF16>(q, grid, tile_bytes, stages, smem_bytes, s);
+}
+
+// The fused dequant-into-aggregate over the int8 arena: q (N, P) int8 with row
+// stride q_stride, scales (N, P/group) f32 with row stride s_stride (both in
+// elements, any alignment), raw weights and the mask (N,) f32, out (P,) f32.
+// P must be a multiple of the group, the group a multiple of 8.  grid,
+// tile_bytes, stages and smem_bytes are fedavg.py's launch_plan(rows,
+// group=group).  Returns the cudaError_t of the launch (0 on success).
+extern "C" int repro_fedavg_q8(const void* values, long long q_stride, const void* scales,
+                               long long s_stride, const void* weights, const void* mask,
+                               void* out, int n, long long p, int group, int grid,
+                               int tile_bytes, int stages, int smem_bytes, void* stream) {
+  if (n < 1 || p < 0 || group < 8 || group % 8 || p % group || q_stride < p ||
+      s_stride < p / group || mask == nullptr || reinterpret_cast<uintptr_t>(scales) % 4)
+    return cudaErrorInvalidValue;
+  Params q{};
+  q.x = make_view(values, q_stride, 1, n, p);
+  q.s = make_view(scales, s_stride, 4, n, p / group);
+  q.w = static_cast<const float*>(weights);
+  q.m = static_cast<const float*>(mask);
+  q.out = static_cast<float*>(out);
+  q.n = n;
+  q.p = p;
+  q.group = group;
+  return launch<Q8>(q, grid, tile_bytes, stages, smem_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -3,9 +3,10 @@
 Replaces the reference's TPU kernels ``repro/kernels/fedavg.py``
 ``masked_fedavg_pallas`` (the arena reduction, once per sync round) and
 ``fedavg_pallas`` (its unmasked twin, the ``store_mode="stack"`` leg).  One
-CUDA kernel (``csrc/fedavg.cu``) serves both; its header gives the bound
-(``(N·P·bytes + 4P) / 3.35 TB/s`` — HBM bandwidth) and what the design does
-about it.
+CUDA kernel (``csrc/fedavg.cu``) serves both, and serves the int8 arena's
+fused dequant-into-aggregate too (``kernels/fused_agg.py``) as a third row
+type of the same ring; its header gives the bound (``(N·P·bytes + 4P) /
+3.35 TB/s`` — HBM bandwidth) and what the design does about it.
 
 Beside each kernel wrapper sits its plain PyTorch version, the einsum of
 ``repro/core/aggregation.py``: the CPU tests run it, and ``chip_smoke.py``
@@ -17,10 +18,10 @@ raises if the launch failed.  The weights are normalized inside the kernel
 (every block sums them in one fixed order and applies ``normalize``'s or
 ``masked_normalize``'s zero-sum fallback), so no torch op runs on the
 device around it.  The launch plan — a persistent grid over tiles of one
-fixed width, one fixed ring, the dynamic shared memory — is computed here in Python
-(:func:`launch_plan`), as is the aligned-window arithmetic of the bulk
-copies (:func:`tile_window`) that the kernel follows, so the CPU tests cover
-both.
+fixed width per row type, one fixed ring, the dynamic shared memory — is
+computed here in Python (:func:`launch_plan`), as is the aligned-window
+arithmetic of the bulk copies (:func:`tile_window`) that the kernel follows,
+so the CPU tests cover both.
 
 Each kernel wrapper counts its launches in a plain integer
 (``masked_fedavg_cuda.launches``, ``fedavg_cuda.launches``), incremented only
@@ -48,15 +49,18 @@ __all__ = [
     "launch_plan",
     "tile_window",
     "smem_bytes",
+    "scale_slot_bytes",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: The launch plan, chosen by measurement on the card (PERF.md): each block
-#: walks tiles of ``TILE_BYTES`` of every row through a ring of ``STAGES``
-#: one-row stages, ``BLOCKS_PER_SM`` blocks to an SM.  ``csrc/fedavg.cu``
-#: refuses any other tile or stage count.
+#: walks tiles of ``TILE_BYTES`` of every f32 or bf16 row (``TILE_BYTES_Q8``
+#: of every int8 row: 16,384 columns, 64 accumulators a consumer thread as
+#: for bf16) through a ring of ``STAGES`` one-row stages, ``BLOCKS_PER_SM``
+#: blocks to an SM.  ``csrc/fedavg.cu`` refuses any other tile or stage count.
 TILE_BYTES = 32768
+TILE_BYTES_Q8 = 16384
 STAGES = 3
 BLOCKS_PER_SM = 2
 #: Rows whose weights and live list are staged in shared memory; past it the
@@ -162,13 +166,26 @@ def tile_window(base, esize, row_stride, n, p, row, c0, c1) -> Window:
                   head_end=np.clip(ws, a, b), tail_start=np.clip(we, a, b))
 
 
-def smem_bytes(n: int, staged: bool) -> int:
+def scale_slot_bytes(group: int) -> int:
+    """One stage's scale slot for int8 rows (``csrc/fedavg.cu``'s
+    ``scale_slot_bytes``): the groups a tile's columns touch, at most
+    ``ceil(TILE_BYTES_Q8 / group) + 1``, 4 bytes each, in a multiple of 128
+    bytes, plus the 128 a window may start early."""
+    return 128 + -(-4 * (-(-TILE_BYTES_Q8 // group) + 1) // 128) * 128
+
+
+def smem_bytes(n: int, staged: bool, group: int | None = None) -> int:
     """Dynamic shared memory of one block (``csrc/fedavg.cu``'s ``Layout``):
-    the ring (``STAGES`` slots of ``TILE_BYTES + 128``), each slot's weight
-    and byte offset, a full and an empty barrier per stage, the misc scratch
-    and, when staged, ŵ and the live list (4 bytes a row each)."""
-    return (STAGES * (TILE_BYTES + 128) + STAGES * 8 + STAGES * 16 + _MISC_BYTES
-            + (8 * n if staged else 0))
+    the ring (``STAGES`` slots of the tile plus 128 bytes), for int8 rows
+    (``group`` given) a scale slot per stage, each slot's weight, byte offset
+    and (int8) scale byte offset, a full and an empty barrier per stage at an
+    8-byte boundary, the misc scratch and, when staged, ŵ and the live list
+    (4 bytes a row each)."""
+    tile = TILE_BYTES if group is None else TILE_BYTES_Q8
+    sslot = 0 if group is None else scale_slot_bytes(group)
+    offsets = STAGES * (tile + 128) + STAGES * sslot + STAGES * 8 + (STAGES * 4 if sslot else 0)
+    bars = -(-offsets // 8) * 8
+    return bars + STAGES * 16 + _MISC_BYTES + (8 * n if staged else 0)
 
 
 class LaunchPlan(NamedTuple):
@@ -190,22 +207,27 @@ def _sm_count(device: torch.device) -> int:
                         else torch.cuda.current_device())
 
 
-def launch_plan(rows: torch.Tensor, *, sm_count: int | None = None) -> LaunchPlan:
-    """The launch plan for an ``(N, P)`` arena: its tiles of ``TILE_BYTES``
-    per row, whether ŵ and the live list are staged in shared memory
-    (``N <= STAGE_CAP``), the block's dynamic shared memory, and a persistent
-    grid of the fewest blocks that take as many rounds over the tiles as
-    ``BLOCKS_PER_SM`` blocks on every SM would, so the last round is as full
-    as the first.  ``sm_count`` defaults to the card's (pass it for a host
-    tensor)."""
+def launch_plan(rows: torch.Tensor, *, sm_count: int | None = None,
+                group: int | None = None) -> LaunchPlan:
+    """The launch plan for an ``(N, P)`` arena: its tiles per row
+    (``TILE_BYTES``, or ``TILE_BYTES_Q8`` for int8 rows, whose scale
+    ``group`` must be given), whether ŵ and the live list are staged in
+    shared memory (``N <= STAGE_CAP``), the block's dynamic shared memory,
+    and a persistent grid of the fewest blocks that take as many rounds over
+    the tiles as ``BLOCKS_PER_SM`` blocks on every SM would, so the last
+    round is as full as the first.  ``sm_count`` defaults to the card's (pass
+    it for a host tensor)."""
     n, p = rows.shape
+    if (rows.dtype == torch.int8) != (group is not None):
+        raise ValueError("int8 rows need their scale group, and only they take one")
     if sm_count is None:
         sm_count = _sm_count(rows.device)
     staged = n <= STAGE_CAP
-    n_tiles = -(-p // (TILE_BYTES // rows.element_size()))
+    tile = TILE_BYTES if group is None else TILE_BYTES_Q8
+    n_tiles = -(-p // (tile // rows.element_size()))
     rounds = -(-n_tiles // (sm_count * BLOCKS_PER_SM))
     grid = -(-n_tiles // rounds) if rounds else 0
-    return LaunchPlan(grid=grid, staged=staged, smem_bytes=smem_bytes(n, staged),
+    return LaunchPlan(grid=grid, staged=staged, smem_bytes=smem_bytes(n, staged, group),
                       n_tiles=n_tiles)
 
 

@@ -4,8 +4,19 @@ Replaces the reference's TPU kernel ``repro/kernels/fused_agg.py``
 ``masked_fedavg_q8_pallas``: the quantized-resident arena
 (``core/store.ArenaStore(arena_dtype="int8")``) keeps each learner row as
 int8 groups plus per-group f32 scales, and its aggregation reads them in one
-pass, never building the f32 ``(N, P)`` stack.  The CUDA kernel is
-``csrc/fused_agg.cu``; its header gives the bound and the design.  The TPU
+pass, never building the f32 ``(N, P)`` stack.  The CUDA kernel is the
+masked FedAvg kernel's ring (``csrc/fedavg.cu``) with a third row type, int8
+values and their scale tile: one launch per aggregate with the weights
+normalized inside (ŵ bit for bit as ``masked_fedavg_cuda`` derives it), a
+persistent grid over 16 KB column tiles, and one producer lane that issues a
+``cp.async.bulk`` copy of each live row's int8 tile and one of its scales
+into a 3-stage ring in shared memory, so dead rows are never read.  Each
+value is dequantized and rounded before its FMA, as in the reference, so the
+result equals ``masked_fedavg_cuda(dequant_rows(q, s), w, m)`` bit for bit.
+The bound is HBM bandwidth over the live rows' bytes, ``(L·P + 4·L·P/group
++ 4P) / 3.35 TB/s`` for L live rows: 0.1109 ms at 32 live rows of
+10,174,464 columns at group 256, 0.0368 ms at 8 of 32.  Rows may be strided
+and unaligned (aligned windows, as for FedAvg); nothing is copied.  The TPU
 block-size helpers (``choose_block_p_q8*``) size VMEM tiles and have no
 counterpart here: every ``P`` that is a whole number of groups runs as is.
 
@@ -19,8 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels._build import count_launch, load_library
-from repro_torch.kernels.fedavg import masked_normalize
 from repro_torch.kernels.quantize import DEFAULT_GROUP
 
 __all__ = ["dequant_rows", "masked_fedavg_q8_torch", "masked_fedavg_q8_cuda"]
@@ -58,7 +69,7 @@ def masked_fedavg_q8_torch(
     """
     _check(q, scales, group)
     m = mask.to(torch.float32)
-    w = masked_normalize(weights, m)
+    w = _fedavg.masked_normalize(weights, m)
     rows = torch.where(m[:, None] > 0, dequant_rows(q, scales, group), 0.0)
     return torch.einsum("n,np->p", w, rows)
 
@@ -67,36 +78,38 @@ def masked_fedavg_q8_cuda(
     q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,
     group: int = DEFAULT_GROUP,
 ) -> torch.Tensor:
-    """The fused dequant-into-aggregate on the card through the hand-written kernel.
+    """The fused dequant-into-aggregate on the card through the hand-written
+    kernel, one launch.
 
-    Reads the arena and its scales in place (rows may be strided); raises on
-    a non-CUDA tensor, a bad shape or a failed launch.
+    Reads the arena and its scales in place (rows may be strided, at any
+    alignment); ``weights`` are raw (the kernel normalizes them).  Raises on
+    a non-CUDA tensor, a non-int8 arena, a bad shape or layout, or a failed
+    launch.
     """
-    if q.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {q.device}")
     if q.dtype != torch.int8:
         raise ValueError(f"the quantized arena must be int8, got {q.dtype}")
     n, p = _check(q, scales, group)
     if n < 1:
         raise ValueError("the arena needs at least one row")
-    if q.stride(1) != 1 or q.stride(0) % group:
-        q = q.contiguous()
-    if q.data_ptr() % 16:
-        q = q.clone()
-    scales = scales.to(q.device, torch.float32)
-    if scales.stride(1) != 1:
-        scales = scales.contiguous()
+    if q.stride(1) != 1 or q.stride(0) < p:
+        raise ValueError("arena rows must be contiguous along P (stride(1) == 1)")
     dev = q.device
-    m = torch.as_tensor(mask).to(dev, torch.float32).contiguous()
-    w_hat = masked_normalize(torch.as_tensor(weights).to(dev), m).contiguous()
-    if w_hat.shape != (n,) or m.shape != (n,):
-        raise ValueError(f"weights and mask must be ({n},)")
+    if scales.device != dev or scales.dtype != torch.float32:
+        raise ValueError(f"scales must be float32 on {dev}, got {scales.dtype} on {scales.device}")
+    if scales.stride(1) != 1 or scales.stride(0) < p // group:
+        raise ValueError("scale rows must be contiguous (stride(1) == 1)")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {dev}")
+    w = _fedavg._vector(weights, n, dev, "weights")
+    m = _fedavg._vector(mask, n, dev, "mask")
+    plan = _fedavg.launch_plan(q, group=group)
     out = torch.empty((p,), dtype=torch.float32, device=dev)
     lib = load_library().lib
     with torch.cuda.device(dev):
         rc = lib.repro_fedavg_q8(
             q.data_ptr(), q.stride(0), scales.data_ptr(), scales.stride(0),
-            w_hat.data_ptr(), m.data_ptr(), out.data_ptr(), n, p, group,
+            w.data_ptr(), m.data_ptr(), out.data_ptr(), n, p, group,
+            plan.grid, _fedavg.TILE_BYTES_Q8, _fedavg.STAGES, plan.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

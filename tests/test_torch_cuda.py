@@ -15,7 +15,11 @@ the empty mask, two launches bit-identical, one device kernel per wrapper
 call); quantize
 and dequantize bit-identical to their plain versions (``ops.quantize`` on
 unpadded rows with ragged tails, one launch that writes the wire's layout);
-the fused dequant-into-aggregate at atol = rtol = 2e-5; the masked trimmed
+the fused dequant-into-aggregate at atol = rtol = 2e-5 (at full width all
+live and 8 of 32 live under staleness weights, group 512, N = 2,049,
+unaligned views, a view past 2^31 bytes; bit-identical to the f32 FedAvg
+kernel on the dequantized rows and across launches, dead rows' garbage
+changing no bit, one device kernel a call); the masked trimmed
 mean at atol = rtol = 1e-5 in f32 and bf16 alike (both versions widen bf16
 to f32 exactly and sum the band in sorted order, up to the torch
 reduction's grouping), on both sides of each of the sorting network's
@@ -247,6 +251,120 @@ def test_fused_q8_kernel_matches_plain(cuda_device, n, p, group):
     _close(got.cpu(), want.cpu(), 2e-5)
     empty = tops.masked_fedavg_q8(q, s, w, torch.zeros_like(m), group=group)
     assert torch.count_nonzero(empty) == 0
+
+
+def _q8_rows(n, p, group, seed, device):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-127, 128, size=(n, p), dtype=np.int8)).to(device)
+    s = torch.from_numpy(rng.uniform(0.01, 5, size=(n, p // group)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(1, 50, size=n).astype(np.float32)).to(device)
+    return q, s.to(device), w
+
+
+def _fedbuff_weights(n, live, seed, device):
+    """A FedBuff aggregate's mask (``live`` rows of ``n``) and its staleness
+    weights, ``n_i · (1 + s_i)^(-1/2)``."""
+    rng = np.random.default_rng(seed)
+    m = torch.zeros((n,), device=device)
+    m[torch.from_numpy(rng.choice(n, size=live, replace=False))] = 1.0
+    examples = torch.from_numpy(rng.integers(50, 150, size=n).astype(np.float32))
+    staleness = torch.from_numpy(rng.integers(0, 8, size=n).astype(np.float32))
+    return tagg.staleness_weights(examples, staleness).to(device), m
+
+
+def _q8_agrees(q, s, w, m, group, what):
+    """The fused kernel against its plain version (2e-5), bit for bit against
+    the f32 FedAvg kernel on the dequantized rows and against a second
+    launch; dead rows then filled with NaN and 1e30 scales and saturated
+    values change no bit.  Prints and returns the worst error."""
+    got = tfused.masked_fedavg_q8_cuda(q, s, w, m, group)
+    assert torch.equal(got.view(torch.int32),
+                       tfused.masked_fedavg_q8_cuda(q, s, w, m, group).view(torch.int32))
+    f32 = tfed.masked_fedavg_cuda(tfused.dequant_rows(q, s, group), w, m)
+    assert torch.equal(got.view(torch.int32), f32.view(torch.int32))
+    want = tfused.masked_fedavg_q8_torch(q, s, w, m, group)
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    print(f"{what}: max abs err {err} against the plain version (bar 2e-5)")
+    _close(got.cpu(), want.cpu(), 2e-5)
+    dead = m <= 0
+    if bool(dead.any()):
+        s[dead] = float("nan")
+        s[torch.nonzero(dead).flatten()[::2]] = 1e30
+        q[dead] = 127
+        garbage = tfused.masked_fedavg_q8_cuda(q, s, w, m, group)
+        assert torch.equal(got.view(torch.int32), garbage.view(torch.int32))
+    return err
+
+
+@pytest.mark.parametrize("mask", ["all_live", "fedbuff_8_of_32"])
+def test_fused_q8_kernel_at_full_width(cuda_device, mask):
+    """The int8_arena leg's (32, 10,174,464) arena with all rows live, and the
+    buffered_async_int8 leg's aggregate: 8 of 32 live under staleness
+    weights; every block walks several 16 KB tiles round the ring."""
+    q, s, w = _q8_rows(32, P_MAIN, 256, seed=17, device=cuda_device)
+    m = torch.ones((32,), device=cuda_device)
+    if mask == "fedbuff_8_of_32":
+        w, m = _fedbuff_weights(32, 8, seed=3, device=cuda_device)
+    plan = tfed.launch_plan(q, group=256)
+    assert plan.n_tiles > plan.grid
+    _q8_agrees(q, s, w, m, 256, f"masked_fedavg_q8 {mask}")
+
+
+@pytest.mark.parametrize("case", ["group512", "n2049", "zero_weights", "empty_mask",
+                                  "unaligned_view", "half_unit_group8", "past_2gb"])
+def test_fused_q8_kernel_edge_cases(cuda_device, case):
+    """Group 512; past the 2,048-row staging cap (ballots); zero weights (the
+    uniform mean over live rows) and the empty mask (zeros); values and
+    scales at unaligned offsets and strides; P ≡ 8 (mod 16) at group 8; and a
+    strided view of a 2.24 GB arena whose last row starts past 2^31 bytes."""
+    dev = cuda_device
+    n, p, group = {"group512": (7, 50_176, 512), "n2049": (2049, 2048, 256),
+                   "zero_weights": (7, 4608, 256), "empty_mask": (7, 4608, 256),
+                   "unaligned_view": (33, 40_960, 256), "half_unit_group8": (5, 8200, 8),
+                   "past_2gb": (220, P_MAIN, 256)}[case]
+    q, s, w = _q8_rows(n, p + 3, group, seed=n + p, device=dev) if case == "unaligned_view" \
+        else _q8_rows(n, p, group, seed=n + p, device=dev)
+    m = torch.ones((n,), device=dev)
+    m[1::3] = 0.0
+    if case == "unaligned_view":  # rows 3 bytes in and p + 3 apart; scales 4 bytes in
+        q = q[:, 3:]
+        s = torch.cat([s, s[:, :1]], 1)[:, 1:p // group + 1]
+        assert q.data_ptr() % 16 and q.stride(0) % 16 and s.data_ptr() % 16
+    elif case == "past_2gb":  # rows 0, 73, 146 and 219 of the arena
+        q, s, w, m = q[::73], s[::73], w[::73], m[::73]
+        assert q.stride(0) * 3 > 2**31
+    elif case == "zero_weights":
+        w = torch.zeros((n,), device=dev)
+    elif case == "empty_mask":
+        m = torch.zeros((n,), device=dev)
+    got = tfused.masked_fedavg_q8_cuda(q, s, w, m, group)
+    if case == "zero_weights":
+        _close(got.cpu(), tfused.dequant_rows(q, s, group)[m > 0].mean(0).cpu(), 2e-5)
+    elif case == "empty_mask":
+        assert torch.count_nonzero(got) == 0
+    _q8_agrees(q, s, w, m, group, f"masked_fedavg_q8 {case}")
+
+
+def test_fused_q8_wrapper_launches_one_device_kernel(cuda_device):
+    """The fused wrapper is one device kernel a call, the normalization inside
+    it (the profiler misses a record now and then: see below)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, s, w = _q8_rows(32, 70_144, 256, seed=5, device=cuda_device)
+    m = torch.ones((32,), device=cuda_device)
+    m[::4] = 0.0
+    call = lambda: tfused.masked_fedavg_q8_cuda(q, s, w, m)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= 10:
+            break
+    assert 9 <= len(names) <= 10 and all("fedavg_kernel" in k for k in names), names
 
 
 def test_int8_arena_rounds_launch_the_fused_kernel(cuda_device):

@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import aggregation as tagg
 from repro_torch.kernels import fedavg as tfed
+from repro_torch.kernels import fused_agg as tfused
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -142,3 +143,23 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tfed.masked_fedavg_cuda(rows, torch.ones(2), torch.ones(2))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfed.fedavg_cuda(rows, torch.ones(2))
+
+
+def test_fused_q8_wrapper_refuses_what_the_kernel_does_not_take():
+    """The fused wrapper raises rather than copy: a float arena, a bad scales
+    shape, scales of another type, rows or scales not contiguous along their
+    width, and (after all of those pass) a host tensor."""
+    q = torch.zeros((3, 2048), dtype=torch.int8)
+    s, w, m = torch.ones((3, 8)), torch.ones(3), torch.ones(3)
+    with pytest.raises(ValueError, match="must be int8"):
+        tfused.masked_fedavg_q8_cuda(q.float(), s, w, m)
+    with pytest.raises(ValueError, match="scales shape"):
+        tfused.masked_fedavg_q8_cuda(q, torch.ones((3, 7)), w, m)
+    with pytest.raises(ValueError, match="float32"):
+        tfused.masked_fedavg_q8_cuda(q, s.double(), w, m)
+    with pytest.raises(ValueError, match="contiguous along P"):
+        tfused.masked_fedavg_q8_cuda(torch.zeros((3, 4096), dtype=torch.int8)[:, ::2], s, w, m)
+    with pytest.raises(ValueError, match="scale rows must be contiguous"):
+        tfused.masked_fedavg_q8_cuda(q, torch.ones((3, 16))[:, ::2], w, m)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfused.masked_fedavg_q8_cuda(q[:, 256:], s[:, 1:], w, m)
