@@ -53,6 +53,17 @@ nothing of the JAX package.  Phases, each printing its own lines:
              (fraction 0.5) on a ``FaultyChannel`` losing and duplicating
              uploads (fault seed 7) — global buffer as above, every
              ``engine.faults.*`` and ``engine.uploads.*`` counter equal;
+             then checkpoint and resume, on learners that train on a
+             constant batch: an int8-arena federation on the int8 codec
+             killed after round 2 and resumed on a fresh controller with
+             fresh learners (kernels 3 and 5 after the restore), and a
+             FedBuff federation (K = 2 of 3, one dispatch worker) resumed
+             mid-buffer, each bit-identical to its uninterrupted run on the
+             card and the uninterrupted runs within the bars above of the
+             host's; a secure async federation (global buffer rtol 1e-4 /
+             atol 1e-5, counters equal); and a 2-round federation with each
+             local optimizer after SGD (momentum, Adam, AdamW, Adafactor;
+             rtol 1e-4 / atol 1e-5);
 5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100, ten
              legs and a diagnostic, each reached as users reach it, with
              its launch counts zeroed just before it and read just after:
@@ -85,7 +96,24 @@ nothing of the JAX package.  Phases, each printing its own lines:
              ``FaultyChannel`` losing and duplicating uploads, 3 rounds;
              the lost and duplicated counts equal the injector's fates for
              the dispatched pairs, the deadline fired, every late upload
-             folded into the next round's reduce).
+             folded into the next round's reduce); ``resume`` (``Driver``
+             with ``checkpoint_every=1``: one round, then a fresh driver
+             with fresh learners, their batch generators advanced past
+             round 1's draws as learners that outlive a controller restart
+             would be, ``restore()``, one more round; the restored arena,
+             weights, valid mask, versions and global model bit-identical
+             to what was saved, and each round's global model bit-identical
+             to the arena leg's; save and restore seconds and the
+             checkpoint's bytes printed); ``secure`` (``launch/train.main
+             --secure``, 2 rounds: each round's masked aggregate
+             bit-identical to the unmasked wrapping int32 sum of
+             ``encode_fixed(ŵ_i·row_i)`` over the same arena rows, and
+             within N/(2·2^16) + 1e-6 of kernel 1's FedAvg of them).  After the
+             arena leg, the ``naive`` line: the paper's baseline,
+             ``core/naive.naive_aggregate`` (host float64, tensor by tensor,
+             learner by learner) over the arena's 32 uploads, timed against
+             kernel 1's reduce of the same rows on the card, and the two
+             within atol = rtol = 1e-5.
 
 A disagreement found in the kernels or check phases is printed and recorded,
 and the script goes on, so one call shows every fault; any recorded or
@@ -98,10 +126,13 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,6 +146,7 @@ F32_ISSUE_PER_S = F32_FLOPS / 2
 P_MAIN = 10_174_464  # housing-mlp-10m row, padded to the arena's 1024 alignment
 P_STACK = 10_174_081  # housing-mlp-10m params: the stack leg's unpadded rows
 N_MAIN = 32
+SIZE_MAIN = "10m"  # housing-mlp-10m
 GROUP = 256
 # Rounds per round-based leg.  The stack, int8_wire, int8_arena,
 # trimmed_mean and median legs run 2 rounds (two is what keeps a lineage of
@@ -122,7 +154,8 @@ GROUP = 256
 # once), so the legs stay inside 600 s of command time; every leg keeps its
 # full width.  ``deadline_32`` is a one-round diagnostic.
 LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 2, "int8_wire": 2, "trimmed_mean": 2,
-              "median": 2, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 3}
+              "median": 2, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 3,
+              "resume": 2, "secure": 2}
 ASYNC_UPDATES = 32  # the async leg's total_updates (one per learner)
 FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
 # The deadline_faults leg's dispatch workers.  With 32 (the default, one per
@@ -282,6 +315,43 @@ def main() -> None:
         print(json.dumps({"phase": "check", "protocol": name, "counters": on_card,
                           "model_version": c_gpu.telemetry.value("controller.model_version")}),
               flush=True)
+    # Checkpoint and resume: a kill after round 2 (after update 1 for
+    # FedBuff, mid-buffer) and a resume on a fresh controller with fresh
+    # learners must end bit-identical to the uninterrupted run on the card.
+    from repro_torch.core import SyncProtocol
+
+    resume_checks = {
+        "resume_int8_arena": dict(protocol=lambda: SyncProtocol(**task), learners=3, steps=(2, 2),
+                                  every=2, upload_codec="int8", arena_dtype="int8"),
+        "resume_fedbuff": dict(protocol=lambda: BufferedAsyncProtocol(buffer_k=2, **task),
+                               learners=3, steps=(1, 3), every=1, updates=True),
+    }
+    for name, kw in resume_checks.items():
+        golden = {where: check_resume(train, d, name, **kw)
+                  for where, d in (("card", dev), ("host", torch.device("cpu")))}
+        g, h = golden["card"].cpu(), golden["host"]
+        checks[name] = (within_q8_bar(g, h, f"check {name}") if kw.get("arena_dtype") == "int8"
+                        else _close(g, h, 1e-4, atol=1e-5, what=f"check {name}"))
+    c_gpu, _ = run_controller(train, dev, AsyncProtocol(**task), 4, updates=6, secure=True)
+    c_cpu, _ = run_controller(train, torch.device("cpu"), AsyncProtocol(**task), 4, updates=6,
+                              secure=True)
+    checks["secure_async"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer, 1e-4,
+                                    atol=1e-5, what="check secure_async")
+    on_card, on_host = _engine_counters(c_gpu), _engine_counters(c_cpu)
+    _expect(on_card == on_host and c_gpu._model_version == c_cpu._model_version >= 6,
+            f"check secure_async: counters {on_card} on the card, {on_host} on the host")
+    print(json.dumps({"phase": "check", "protocol": "secure_async", "counters": on_card,
+                      "admission_control": c_gpu.admission_control,
+                      "model_version": c_gpu._model_version}), flush=True)
+    from repro_torch import optim as optim_mod
+
+    for name, opt in (("momentum", optim_mod.momentum(0.01)), ("adam", optim_mod.adam(1e-3)),
+                      ("adamw", optim_mod.adamw(1e-3)), ("adafactor", optim_mod.adafactor(1e-3))):
+        c_gpu, _ = run_controller(train, dev, SyncProtocol(**task), 4, rounds=2, optimizer=opt)
+        c_cpu, _ = run_controller(train, torch.device("cpu"), SyncProtocol(**task), 4, rounds=2,
+                                  optimizer=opt)
+        checks[f"optimizer_{name}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer,
+                                             1e-4, atol=1e-5, what=f"check optimizer {name}")
     print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     del d_gpu, d_cpu, c_gpu, c_cpu
@@ -312,8 +382,13 @@ def main() -> None:
                               size="10m", lr=LR, faults=FAULTS, workers=workers,
                               record_selected=True)
 
+    arena_models: list[torch.Tensor] = []  # the arena leg's global model, round by round
+    secure_rounds: list[dict] = []  # the secure leg's aggregates and the rows they summed
+
     legs = {
-        "arena": lambda: _controller(train.main(launcher(LEG_ROUNDS["arena"]))),
+        "arena": lambda: _spy_evaluate(
+            lambda c: arena_models.append(c.global_buffer.clone()),
+            lambda: _controller(train.main(launcher(LEG_ROUNDS["arena"])))),
         "stack": lambda: _controller(run_federation(train, dev, lineage_length=2,
                                                     **fed("stack"))),
         "int8_arena": lambda: _controller(run_federation(train, dev, upload_codec="int8",
@@ -332,6 +407,9 @@ def main() -> None:
             arena_dtype="int8", **{**fed("arena"), "rounds": FEDBUFF_UPDATES})),
         "deadline_32": lambda: deadline_leg("deadline_32", N_MAIN),
         "deadline_faults": lambda: deadline_leg("deadline_faults", DEADLINE_WORKERS),
+        "resume": lambda: resume_leg(train, dev, arena_models),
+        "secure": lambda: _spy_secure(secure_rounds, lambda: _controller(
+            train.main(launcher(LEG_ROUNDS["secure"], "--secure")))),
     }
 
     def expected(leg: str, c, history) -> dict:
@@ -351,6 +429,8 @@ def main() -> None:
             "buffered_async_int8": {"quantize": uploads, "masked_fedavg_q8": rounds},
             "deadline_32": {"masked_fedavg": rounds},
             "deadline_faults": {"masked_fedavg": rounds},
+            "resume": {"masked_fedavg": rounds},  # one a round, before and after the restore
+            "secure": {},  # the masked int32 sum is plain tensor arithmetic, as in the reference
         }[leg]
 
     launches = dict.fromkeys(counters, 0)
@@ -371,6 +451,8 @@ def main() -> None:
             assert len(history) >= (ASYNC_UPDATES if leg == "async" else FEDBUFF_UPDATES)
         else:
             eval_loss[leg] = [h_.metrics["eval_loss"] for h_ in history]
+            if leg == "arena":
+                arena_aggregation_s = [h_.aggregation_s for h_ in history]
             train_round_s[leg] = [h_.train_round_s for h_ in history]
             for h_ in history:
                 print(json.dumps({"phase": f"main.{leg}", "round": h_.round_id,
@@ -394,7 +476,7 @@ def main() -> None:
             resident[leg] = tel.value("store.arena.bytes_resident")
             assert arena.buffer.device.type == "cuda", arena.buffer.device
             assert tuple(arena.buffer.shape) == (N_MAIN, P_MAIN), arena.buffer.shape
-        if leg == "arena":
+        if leg in ("arena", "secure"):
             assert c.arena.buffer.dtype == torch.float32
             assert up == N_MAIN * rounds * 4 * P_MAIN, up
         if leg.startswith("int8"):
@@ -427,6 +509,15 @@ def main() -> None:
             check_fedbuff(c, history)
         if leg.startswith("deadline"):
             check_deadline_faults(c, leg, must_fire=leg == "deadline_faults")
+        if leg == "arena":
+            naive_line(c, kfed)
+        if leg == "secure":
+            assert c.secure and not c.admission_control
+            check_secure(c, secure_rounds, kfed)
+            print(json.dumps({"phase": "main.secure",
+                              "aggregation_s": [h_.aggregation_s for h_ in history],
+                              "arena_aggregation_s": arena_aggregation_s}), flush=True)
+            secure_rounds.clear()
         assert torch.isfinite(c.global_buffer).all()
         for name, v in counts.items():
             launches[name] += v
@@ -490,19 +581,20 @@ def _controller(run: tuple) -> tuple:
 
 
 def run_controller(train, dev, protocol, learners, rounds=0, updates=0, size="100k", lr=0.01,
-                   faults=None, workers=1, record_selected=False, **ctrl_kw):
+                   faults=None, workers=1, record_selected=False, optimizer=None, **ctrl_kw):
     """A ``Controller`` built directly, with the launcher's learners (same
-    model, data and seed as ``train.main``), on a ``FaultyChannel`` when
-    ``faults`` is a ``FaultSpec``'s fields; runs ``rounds`` rounds or
-    ``updates`` community updates.  ``record_selected`` keeps each round
-    aggregate's learner list at ``controller.selected``.  Returns
-    ``(controller, history)``; the controller is shut down."""
+    model, data and seed as ``train.main``; local SGD unless ``optimizer``
+    is given), on a ``FaultyChannel`` when ``faults`` is a ``FaultSpec``'s
+    fields; runs ``rounds`` rounds or ``updates`` community updates.
+    ``record_selected`` keeps each round aggregate's learner list at
+    ``controller.selected``.  Returns ``(controller, history)``; the
+    controller is shut down."""
     from repro_torch import optim
     from repro_torch.core import Controller, FaultInjector, FaultSpec, FaultyChannel
     from repro_torch.models import mlp as mlp_model
 
     cfg, fleet = train.build_housing_learners(size, learners, seed=0,
-                                              optimizer=optim.sgd(lr), device=dev)
+                                              optimizer=optimizer or optim.sgd(lr), device=dev)
     initial = mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev)
     channel = None
     if faults is not None:
@@ -529,6 +621,64 @@ def run_controller(train, dev, protocol, learners, rounds=0, updates=0, size="10
     finally:
         ctrl.shutdown()
     return ctrl, history
+
+
+def check_resume(train, dev, name, protocol, learners, steps, every, updates=False,
+                 **ctrl_kw) -> torch.Tensor:
+    """Kill and resume at ``size="100k"``, as the reference's harness runs it:
+    learners train on a constant batch (their whole shard), one dispatch
+    worker.  Runs the uninterrupted federation for ``sum(steps)`` rounds (or
+    community updates), then a federation checkpointing every ``every`` that
+    stops after ``steps[0]``, then a fresh controller with fresh learners
+    restored from its checkpoint for ``steps[1]`` more.  Records a failure
+    unless the resumed model is bit-identical to the uninterrupted one;
+    returns the uninterrupted run's global buffer."""
+    from repro_torch import optim
+    from repro_torch.core import Controller
+    from repro_torch.models import mlp as mlp_model
+
+    def federation(k, **kw):
+        cfg, fleet = train.build_housing_learners("100k", learners, seed=0,
+                                                  optimizer=optim.sgd(0.01), device=dev)
+        for learner in fleet:
+            batch = learner._eval_data_fn()
+            learner._data_fn = lambda bs, b=batch: b
+        ctrl = Controller(protocol=protocol(), arena_n_max=learners, max_dispatch_workers=1,
+                          device=dev, **ctrl_kw, **kw)
+        ctrl.set_initial_model(mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev))
+        for learner in fleet:
+            ctrl.register_learner(learner)
+        return ctrl, k
+
+    def run(ctrl, k):
+        ctrl.engine.run(**({"total_updates": k} if updates else {"rounds": k}))
+        ctrl.shutdown()
+        return ctrl
+
+    golden = run(*federation(sum(steps)))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first = run(*federation(steps[0], checkpoint_every=every, checkpoint_dir=ckpt_dir))
+        resumed, _ = federation(steps[1])
+        meta = resumed.restore(ckpt_dir)
+        run(resumed, steps[1])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same = _same_bits(resumed.global_buffer, golden.global_buffer)
+    diff = float((resumed.global_buffer - golden.global_buffer).abs().max())
+    _expect(same, f"check {name} on {dev.type}: resumed model differs from the uninterrupted "
+                  f"run by {diff} at most")
+    print(json.dumps({"phase": "check", "resume": name, "device": dev.type,
+                      "bit_identical": same, "max_abs_diff": diff,
+                      "checkpoint_round": meta["round_id"],
+                      "pending_buffer": meta.get("pending_buffer"),
+                      "pending_dispatch": meta.get("pending_dispatch"),
+                      "fused_q8": resumed.telemetry.value("controller.aggregations.fused_q8"),
+                      "quantized_direct": resumed.telemetry.value(
+                          "engine.uploads.quantized_direct"),
+                      "first_model_version": first._model_version,
+                      "model_version": resumed._model_version}), flush=True)
+    return golden.global_buffer
 
 
 def run_byzantine(train, dev, size, learners, rounds, local_steps, lr, rule, trim_k,
@@ -588,6 +738,207 @@ def _engine_counters(c) -> dict:
     tel = c.telemetry
     return {k: tel.value(k) for k in sorted(tel.names())
             if k.startswith(("engine.faults.", "engine.uploads."))}
+
+
+def _spy_evaluate(record, run):
+    """Run ``run()`` calling ``record(controller)`` after each round's
+    aggregate, before its evaluation: outside every ``RoundTimings`` field
+    but ``federation_round_s``."""
+    from repro_torch.core.engine import RoundEngine
+
+    evaluate = RoundEngine._evaluate
+
+    def spy(self, state):
+        record(self.controller)
+        evaluate(self, state)
+
+    RoundEngine._evaluate = spy
+    try:
+        return run()
+    finally:
+        RoundEngine._evaluate = evaluate
+
+
+def _spy_secure(rounds: list, run):
+    """Run the secure leg keeping, each round, the masked aggregate (the
+    reduce's own output, before the server optimizer) and a copy of the arena
+    rows, weights and mask it summed (copied after the aggregate, outside
+    ``aggregation_s``)."""
+    from repro_torch.core.controller import Controller
+
+    aggregate = Controller._aggregate_arena
+
+    def spy(self, selected):
+        out = aggregate(self, selected)
+        rounds.append({"aggregate": out, "selected": list(selected)})
+        return out
+
+    def snapshot(c):
+        arena = c.arena
+        rounds[-1].update(buffer=arena.buffer.clone(), weights=arena.weights.clone(),
+                          mask=arena.round_mask(rounds[-1]["selected"]).clone(),
+                          ids=[lid for lid in rounds[-1]["selected"] if lid in arena])
+        rounds[-1]["rows"] = [arena.row_of(lid) for lid in rounds[-1]["ids"]]
+        rounds[-1]["row_weights"] = [arena.weight_of(lid) for lid in rounds[-1]["ids"]]
+
+    Controller._aggregate_arena = spy
+    try:
+        return _spy_evaluate(snapshot, run)
+    finally:
+        Controller._aggregate_arena = aggregate
+
+
+def check_secure(c, rounds: list, kfed) -> None:
+    """Each round's masked aggregate is bit-identical to the unmasked
+    wrapping int32 sum of ``encode_fixed(ŵ_i·row_i)`` over the same arena rows
+    (the pads cancelled exactly on the card), and within N/(2·2^16) + 1e-6 of
+    kernel 1's FedAvg of the rows."""
+    from repro_torch.core import secure
+
+    assert len(rounds) == LEG_ROUNDS["secure"], len(rounds)
+    p = c.arena.num_params
+    for r, rec in enumerate(rounds):
+        n = len(rec["rows"])
+        wsum = float(sum(rec["row_weights"]))
+        total = torch.zeros((p,), dtype=torch.int64, device=rec["buffer"].device)
+        for row, w in zip(rec["rows"], rec["row_weights"]):
+            enc = secure.encode_fixed(rec["buffer"][row, :p] * float(np.float32(w / wsum)))
+            total = (total + enc.to(torch.int64)) % (1 << 32)
+        plain = torch.where(total >= 1 << 31, total - (1 << 32), total).to(torch.int32)
+        unmasked = secure.decode_fixed(plain)
+        same = _same_bits(rec["aggregate"], unmasked)
+        fedavg = kfed.masked_fedavg_cuda(rec["buffer"], rec["weights"], rec["mask"])[:p]
+        err = float((rec["aggregate"] - fedavg).abs().max())
+        # The fixed-point bound, plus kernel 1's own f32 rounding (the slack the
+        # reference's tests/test_secure.py gives it).
+        bound = n / (2.0 * secure.FIXED_SCALE) + 1e-6
+        _expect(same, f"secure round {r}: the masked aggregate differs from the unmasked sum")
+        _expect(err <= bound, f"secure round {r}: {err} from kernel 1's FedAvg, bound {bound}")
+        print(json.dumps({"phase": "main.secure", "round": r, "participants": n,
+                          "bit_identical_to_unmasked_sum": same,
+                          "max_abs_err_vs_kernel_1": err, "bound": bound}), flush=True)
+        del total, plain, unmasked, fedavg
+    rounds.clear()
+
+
+def naive_line(c, kfed) -> None:
+    """The paper's baseline on this card: ``naive_aggregate`` (host float64,
+    tensor by tensor and learner by learner, each tensor copied off the card
+    as it is read) over the arena leg's 32 uploads, against kernel 1's reduce
+    of the same rows (CUDA events, ``_time_ms``); the two agree within
+    atol = rtol = 1e-5."""
+    from repro_torch.core import naive, packing
+    from repro_torch.tree import flatten
+
+    arena = c.arena
+    ids = arena.valid_ids()
+    models = [packing.unpack_numeric(arena.buffer[arena.row_of(lid), : arena.num_params],
+                                     c.manifest) for lid in ids]
+    weights = [arena.weight_of(lid) for lid in ids]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = naive.naive_aggregate(models, weights)
+    naive_s = time.perf_counter() - t0
+    got = torch.from_numpy(np.concatenate([leaf.reshape(-1) for leaf in flatten(out)[0]]))
+    kern = lambda: kfed.masked_fedavg_cuda(arena.buffer, arena.weights, arena.mask)  # noqa: E731
+    want = kern()[: arena.num_params].cpu()
+    err = _close(got, want, 1e-5, what="naive_aggregate vs kernel 1")
+    kernel_ms = _time_ms(kern)
+    print(json.dumps({"phase": "main.naive", "learners": len(ids), "params": arena.num_params,
+                      "naive_s": naive_s, "kernel_ms": kernel_ms,
+                      "naive_over_kernel": naive_s * 1e3 / kernel_ms,
+                      "max_abs_diff": err}), flush=True)
+
+
+def resume_leg(train, dev, arena_models: list):
+    """The ``resume`` leg: ``Driver`` with ``checkpoint_every=1`` for one
+    round, then a fresh driver with fresh learners restored from the
+    checkpoint for one more.  The learners' batch generators are advanced
+    past round 1's draws first, as learners that outlive a controller restart
+    would be (fresh generators would train round 2 on round 1's batches).
+    The checkpoint goes to a temporary directory, whose free space is checked
+    first.  Returns ``(restored controller, both rounds' history)``."""
+    from repro_torch import optim
+    from repro_torch.core import Driver, FederationConfig, FederationEnv, TerminationCriteria
+    from repro_torch.core.controller import Controller
+    from repro_torch.models import mlp as mlp_model
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(ckpt_dir).free
+    need = 2 * N_MAIN * P_MAIN * 4  # the f32 arena twice over
+    print(json.dumps({"phase": "main.resume", "checkpoint_dir": ckpt_dir, "free_bytes": free,
+                      "needed_bytes": need}), flush=True)
+    assert free > need, f"{ckpt_dir}: {free} bytes free, the leg needs {need}"
+
+    def driver(config=None):
+        cfg, fleet = train.build_housing_learners(SIZE_MAIN, N_MAIN, seed=0,
+                                                  optimizer=optim.sgd(LR), device=dev)
+        initial = mlp_model.init_params(torch.Generator().manual_seed(0), cfg, dev)
+        env = FederationEnv(local_steps=LOCAL_STEPS, batch_size=BATCH, learning_rate=LR,
+                            termination=TerminationCriteria(max_rounds=1), device=dev,
+                            config=config)
+        return Driver(env), initial, fleet
+
+    saves = []
+    save = Controller.save_checkpoint
+
+    def timed_save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        path = save(self, *args, **kwargs)
+        saves.append((time.perf_counter() - t0, path, os.path.getsize(path)))
+        return path
+
+    try:
+        Controller.save_checkpoint = timed_save
+        try:
+            d1, initial, fleet = driver(FederationConfig(checkpoint_every=1,
+                                                         checkpoint_dir=ckpt_dir))
+            d1.initialize(initial, fleet)
+            history = d1.run()
+        finally:
+            Controller.save_checkpoint = save
+        c1 = d1.controller
+        assert len(saves) == 1, saves
+        saved = {"buffer": c1.arena.buffer.clone(), "weights": c1.arena.weights.clone(),
+                 "mask": c1.arena.mask.clone(), "versions": c1.arena.versions.clone(),
+                 "global": c1.global_buffer.clone(), "rows": dict(c1.arena._rows),
+                 "learner_versions": dict(c1._learner_versions)}
+        del d1, c1
+        torch.cuda.empty_cache()
+        d2, initial, fleet = driver()
+        for learner in fleet:
+            for _ in range(LOCAL_STEPS):
+                learner._data_fn(BATCH)
+        d2.initialize(initial, fleet)
+        c2 = d2.controller
+        t0 = time.perf_counter()
+        meta = c2.restore(ckpt_dir)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    restored = {name: _same_bits(getattr(c2.arena, name), saved[name])
+                for name in ("buffer", "weights", "mask", "versions")}
+    restored["global"] = _same_bits(c2.global_buffer, saved["global"])
+    restored["rows"] = c2.arena._rows == saved["rows"]
+    restored["learner_versions"] = c2._learner_versions == saved["learner_versions"]
+    assert all(restored.values()), restored
+    assert meta["round_id"] == c2.round_id == 1, meta["round_id"]
+    history += d2.run()
+    # Each round's global model against the arena leg's same round.
+    models = [saved["global"], c2.global_buffer]
+    diffs = [float((got - want).abs().max()) for got, want in zip(models, arena_models)]
+    same = [_same_bits(got, want) for got, want in zip(models, arena_models)]
+    print(json.dumps({"phase": "main.resume", "save_s": saves[0][0], "restore_s": restore_s,
+                      "checkpoint_bytes": saves[0][2], "restored_bit_identical": restored,
+                      "bit_identical_to_arena_leg": same,
+                      "max_abs_diff_to_arena_leg": diffs}), flush=True)
+    if not same[0]:
+        raise AssertionError(f"the card is not run-to-run deterministic: round 1 of two "
+                             f"identical runs differs by {diffs[0]} at most")
+    assert same[1], f"the resumed round 2 differs from the arena leg's by {diffs[1]} at most"
+    del saved, models
+    return c2, history
 
 
 def _spy_first_step_times(seen: dict, run):

@@ -24,11 +24,19 @@ FedAvg and the robust rules, on one device.  The round engine
   :meth:`Controller.aggregate_buffer`) — the continuous policies'
   staleness-damped reduce over every valid row (async) or exactly the
   buffered members (FedBuff), through the same kernels with staleness
-  weights.
+  weights;
+* **secure aggregation** (``secure=True``, ``core/secure.py``) — every
+  aggregate instead sums mask-encoded int32 fixed-point rows inside a
+  per-epoch :class:`~repro_torch.core.secure.MaskSession` (the round id, or
+  the model version on the continuous path), so the controller never sees a
+  single model; admission control is off there;
+* **checkpoints** (:meth:`Controller.save_checkpoint`,
+  :meth:`Controller.restore`) — the whole federation state in one ``.npz``
+  (``repro_torch.checkpoint``), written by the engine every
+  ``checkpoint_every`` rounds after it drains the tasks in flight.
 
-Secure aggregation, the top-k codec and arena, the sharded arena and
-checkpoints are later slices of the port: asking for them raises
-``NotImplementedError`` at construction.
+The top-k codec and arena and the sharded arena are later slices of the
+port: asking for them raises ``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -38,11 +46,13 @@ import threading
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import aggregation, packing
+from repro_torch.core import secure as secure_mod
 from repro_torch.core.engine import RoundEngine, RoundTimings, UploadRejectedError
-from repro_torch.core.journal import EventJournal
+from repro_torch.core.journal import EventJournal, jsonable
 from repro_torch.core.learner import Learner, LocalUpdate
 from repro_torch.core.metrics import Telemetry
 from repro_torch.core.scheduler import LearnerProfile, ProtocolPolicy, SyncProtocol
@@ -51,6 +61,7 @@ from repro_torch.core.server_opt import ServerOptimizer, make_server_optimizer
 from repro_torch.core.store import ArenaStore, ModelRecord, ModelStore
 from repro_torch.core.transport import Broadcast, Channel, get_upload_codec
 from repro_torch.device import resolve_device, wait_queued
+from repro_torch.tree import flatten, unflatten
 
 __all__ = ["RoundTimings", "Controller"]
 
@@ -77,6 +88,11 @@ class Controller:
     aggregate_fn / masked_aggregate_fn:
         ``(stack, weights) -> (P,)`` and ``(arena, weights, mask) -> (P,)``;
         default to FedAvg through ``kernels/ops`` (the Hopper kernel on CUDA).
+    secure / secure_seed:
+        Sum mask-encoded fixed-point uploads (``core/secure``) in a fresh
+        mask session per round id (or, on the continuous path, per global
+        model version), keyed by ``secure_seed``.  Forces admission control
+        off: the norms of masked rows mean nothing.
     aggregation_rule / trim_k:
         ``"fedavg"``, ``"median"`` or ``"trimmed_mean"`` (dropping ``trim_k``
         extremes per side and coordinate); the robust rules replace a custom
@@ -95,6 +111,12 @@ class Controller:
         The upload admission screen (reject non-finite rows, clip norm
         outliers against an EWMA) and quarantine of repeat offenders, on by
         default as in the reference.
+    checkpoint_every / checkpoint_dir:
+        Every ``checkpoint_every`` completed rounds the engine drains the
+        tasks in flight and calls :meth:`save_checkpoint` into
+        ``checkpoint_dir``; :meth:`restore` resumes a fresh controller from
+        it.  Both default to off; ``engine.run(checkpoint_every=...,
+        checkpoint_dir=...)`` overrides them per run.
     device:
         Where the global model, the arena and decoded uploads live; the
         card unless ``device="cpu"``.
@@ -114,6 +136,7 @@ class Controller:
         channel: Channel | None = None,
         secure: bool = False,
         max_dispatch_workers: int = 32,
+        secure_seed: int = 0,
         store_mode: str = "arena",
         masked_aggregate_fn: Callable | None = None,
         arena_n_max: int = 8,
@@ -171,14 +194,11 @@ class Controller:
                     "buffer, not int8 values + scales"
                 )
         self.arena_dtype = arena_dtype
-        if secure:
-            raise _later_slice("secure aggregation", "slice E")
         if arena_mesh is not None:
             raise _later_slice("the mesh-sharded arena", "slice G")
         if sparse_mode != "densify":
             raise _later_slice(f"sparse_mode={sparse_mode!r}", "slice F")
-        if checkpoint_every is not None or checkpoint_dir is not None:
-            raise _later_slice("checkpoint/resume", "slice B-2")
+        self.sparse_mode = sparse_mode
         if store is not None and store_mode == "arena":
             raise ValueError(
                 "store= is only honoured with store_mode='stack'; the arena "
@@ -259,11 +279,16 @@ class Controller:
         # One observability surface: the controller adopts its channel's registry.
         self.telemetry: Telemetry = self.channel.telemetry
         self.store.bind_telemetry(self.telemetry)
+        self.secure = secure
+        self.secure_seed = secure_seed
         self.profile_decay = profile_decay
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_dir = checkpoint_dir
         # Admission control: non-finite rows are rejected; once the EWMA of
         # accepted norms has warmed up, outlier norms are clipped to
-        # factor * EWMA.
-        self.admission_control = bool(admission_control)
+        # factor * EWMA.  Off under secure aggregation: the controller only
+        # ever sees mask-encoded rows there, whose norms mean nothing.
+        self.admission_control = bool(admission_control) and not secure
         self.admission_clip_factor = float(admission_clip_factor)
         self.admission_ewma_decay = float(admission_ewma_decay)
         self.admission_warmup = int(admission_warmup)
@@ -643,12 +668,17 @@ class Controller:
         self._model_version += 1
         self._g_version.set(self._model_version)
 
+    def _mask_session_seed(self, epoch: int) -> int:
+        """The per-epoch secure mask session (round id / model version key)."""
+        return secure_mod.MaskSession(self.secure_seed, epoch).seed
+
     def aggregate_round(self, selected: list[str]) -> float:
         """Cohort aggregation for round-based policies (paper T4-T7).
 
         Arena mode: one masked reduction over the persistent device buffer.
         Stack mode: re-stack the stored buffers into an ``(N, P)`` tensor
-        first.  Commits the result; returns the aggregation seconds.
+        first.  Secure mode sums mask-encoded fixed-point rows in a per-round
+        mask session.  Commits the result; returns the aggregation seconds.
         """
         t0 = time.perf_counter()
         if self.store_mode == "arena":
@@ -658,12 +688,18 @@ class Controller:
                 records = self.store.select_latest(list(selected))
             if not records:
                 raise RuntimeError("no local models available to aggregate")
-            stack = torch.stack([r.buffer for r in records], dim=0)
-            weights = torch.tensor(
-                [float(r.num_examples) for r in records], dtype=torch.float32,
-                device=self.device,
-            )
-            new_buffer = self.aggregate_fn(stack, weights)
+            if self.secure:
+                new_buffer = secure_mod.secure_fedavg(
+                    [r.buffer for r in records], [float(r.num_examples) for r in records],
+                    base_seed=self._mask_session_seed(self.round_id),
+                )
+            else:
+                stack = torch.stack([r.buffer for r in records], dim=0)
+                weights = torch.tensor(
+                    [float(r.num_examples) for r in records], dtype=torch.float32,
+                    device=self.device,
+                )
+                new_buffer = self.aggregate_fn(stack, weights)
         self._commit(new_buffer)
         return time.perf_counter() - t0
 
@@ -671,6 +707,18 @@ class Controller:
         """Masked reduction over the arena restricted to the round's cohort."""
         arena = self.arena
         with arena.lock:
+            if self.secure:
+                rows, weights = [], []
+                for lid in selected:
+                    if lid in arena:
+                        rows.append(arena.row_of(lid))
+                        weights.append(arena.weight_of(lid))
+                if not rows:
+                    raise RuntimeError("no local models available to aggregate")
+                return secure_mod.secure_fedavg_arena(
+                    arena.buffer, rows, weights, num_params=arena.num_params,
+                    base_seed=self._mask_session_seed(self.round_id),
+                )
             # Empty-cohort check from the host-side row map: no device sync.
             if arena.num_valid(list(selected)) == 0:
                 raise RuntimeError("no local models available to aggregate")
@@ -709,7 +757,19 @@ class Controller:
         return out[: arena.num_params]
 
     def _staleness_stack(self, records: list[ModelRecord], alpha: float) -> torch.Tensor:
-        """Staleness-damped reduce of re-stacked stored models (stack mode)."""
+        """Staleness-damped reduce of re-stacked stored models (stack mode);
+        under ``secure`` the masked fixed-point sum with the same weights,
+        computed host-side from the records' metadata."""
+        if self.secure:
+            weights = [
+                float(r.num_examples)
+                * (1.0 + self._model_version - r.metadata.get("model_version", 0)) ** (-alpha)
+                for r in records
+            ]
+            return secure_mod.secure_fedavg(
+                [r.buffer for r in records], weights,
+                base_seed=self._mask_session_seed(self._model_version),
+            )
         stal = torch.tensor(
             [self._model_version - r.metadata.get("model_version", 0) for r in records],
             dtype=torch.float32, device=self.device,
@@ -731,7 +791,10 @@ class Controller:
         t0 = time.perf_counter()
         if self.store_mode == "arena":
             with self.arena.lock:
-                new_buffer = self._staleness_reduce(self.arena.mask, alpha)
+                if self.secure:
+                    new_buffer = self._secure_community_arena(alpha)
+                else:
+                    new_buffer = self._staleness_reduce(self.arena.mask, alpha)
         else:
             with self._store_lock:
                 records = self.store.select_latest(None)  # all known models
@@ -758,9 +821,12 @@ class Controller:
         if self.store_mode == "arena":
             arena = self.arena
             with arena.lock:
-                if arena.num_valid(ordered) == 0:
-                    raise RuntimeError("no local models available to aggregate")
-                new_buffer = self._staleness_reduce(arena.round_mask(ordered), alpha)
+                if self.secure:
+                    new_buffer = self._secure_community_arena(alpha, members=ordered)
+                else:
+                    if arena.num_valid(ordered) == 0:
+                        raise RuntimeError("no local models available to aggregate")
+                    new_buffer = self._staleness_reduce(arena.round_mask(ordered), alpha)
         else:
             with self._store_lock:
                 records = self.store.select_latest(ordered)
@@ -769,6 +835,219 @@ class Controller:
             new_buffer = self._staleness_stack(records, alpha)
         self._commit(new_buffer)
         return time.perf_counter() - t0
+
+    def _secure_community_arena(
+        self, alpha: float, members: list[str] | None = None
+    ) -> torch.Tensor:
+        """Secure async update off the arena: a staleness-damped masked sum.
+
+        Staleness weights are metadata (example counts and model-version
+        lags), computed host-side from the arena's mirrors and folded into the
+        fixed-point encoding learner-side, like the FedAvg weights of the
+        synchronous secure path.  Mask seeds come from the per-epoch session
+        (one per global model version).  ``members`` restricts the sum to
+        those learners' valid rows (FedBuff); ``None`` takes every valid row.
+        """
+        arena = self.arena
+        valid = arena.valid_ids()
+        ids = [lid for lid in members if lid in set(valid)] if members is not None else valid
+        rows, weights = [], []
+        for lid in ids:
+            stale = float(self._model_version) - arena.version_of(lid)
+            rows.append(arena.row_of(lid))
+            weights.append(arena.weight_of(lid) * (1.0 + stale) ** (-alpha))
+        if not rows:
+            raise RuntimeError("no local models available to aggregate")
+        return secure_mod.secure_fedavg_arena(
+            arena.buffer, rows, weights, num_params=arena.num_params,
+            base_seed=self._mask_session_seed(self._model_version),
+        )
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, directory: str | None = None,
+                        step: int | None = None) -> str:
+        """Persist the full federation state for a crash-consistent resume.
+
+        One ``.npz`` through ``repro_torch.checkpoint``: the global model
+        (packed buffer + manifest), the server-optimizer state (its leaves in
+        tree order as ``server_state_{i}``), the store contents (arena arrays
+        or stack records) and a JSON meta block with the round and version
+        counters, learner versions and EWMA profiles, the journal cursor, the
+        admission and quarantine state and a telemetry snapshot.  The
+        journal's sink is flushed first.  ``directory`` defaults to
+        :attr:`checkpoint_dir`, ``step`` to :attr:`round_id`.  Returns the
+        file's path.
+        """
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        directory = directory if directory is not None else self.checkpoint_dir
+        if directory is None:
+            raise ValueError("save_checkpoint needs a directory "
+                             "(or Controller(checkpoint_dir=...))")
+        if self.global_params is None:
+            raise RuntimeError("set_initial_model() before save_checkpoint()")
+        self.journal.flush()
+        step = self.round_id if step is None else int(step)
+        leaves, _ = flatten(self._server_state)
+        extras: dict[str, Any] = {f"server_state_{i}": leaf for i, leaf in enumerate(leaves)}
+        meta: dict[str, Any] = {
+            "round_id": int(self.round_id),
+            "model_version": int(self._model_version),
+            "learner_versions": {k: int(v) for k, v in self._learner_versions.items()},
+            "aggregates_fired": int(self.engine.aggregates_fired),
+            "profiles": {
+                lid: {
+                    "decay": prof.decay,
+                    "observations": prof.observations,
+                    "rep_observations": prof.rep_observations,
+                    "data": jsonable(dict(prof)),
+                }
+                for lid, prof in self._learner_profiles.items()
+            },
+            "deregistered_at": {k: int(v) for k, v in self._deregistered_at.items()},
+            "late_carry": list(self.engine._late_carry),
+            "journal_cursor": int(self.journal.cursor),
+            "protocol": type(self.protocol).__name__,
+            "store_mode": self.store_mode,
+            "secure": bool(self.secure),
+            "aggregation_rule": self.aggregation_rule,
+            "admission": {"ewma": self._adm_ewma, "accepted": int(self._adm_accepted)},
+            "offenses": {
+                lid: [float(score), int(rnd)] for lid, (score, rnd) in self._offenses.items()
+            },
+            "quarantined": sorted(self._quarantined),
+            "telemetry": self.telemetry.snapshot(),
+        }
+        if getattr(self.protocol, "continuous", False):
+            meta["pending_buffer"] = list(self.engine._buffer)
+        if self.engine._pending_dispatch is not None:
+            meta["pending_dispatch"] = list(self.engine._pending_dispatch)
+        if self.arena is not None:
+            st = self.arena.export_state()
+            extras["arena_buffer"] = st["buffer"]
+            extras["arena_weights"] = st["weights"]
+            extras["arena_versions"] = st["versions"]
+            extras["arena_valid"] = st["valid"]
+            if st.get("scales") is not None:
+                extras["arena_scales"] = st["scales"]
+            meta["arena_rows"] = {k: int(v) for k, v in st["rows"].items()}
+            meta["arena_dtype"] = self.arena_dtype
+        elif self.store_mode == "stack":
+            records = self.store.export_records()
+            meta["stack_records"] = [
+                {
+                    "learner_id": rec.learner_id,
+                    "round_id": int(rec.round_id),
+                    "num_examples": int(rec.num_examples),
+                    "metadata": jsonable(rec.metadata),
+                }
+                for rec in records
+            ]
+            for j, rec in enumerate(records):
+                extras[f"stackbuf_{j}"] = rec.buffer
+        return ckpt.save_checkpoint(
+            directory, step, self.global_params, extra_arrays=extras, metadata=meta,
+        )
+
+    def restore(self, directory: str | None = None, step: int | None = None) -> dict:
+        """Resume from a checkpoint written by :meth:`save_checkpoint`.
+
+        Call on a freshly constructed controller with the *same*
+        configuration (protocol, store mode, secure flag, aggregation rule,
+        arena dtype: checked against the checkpoint) and the same learners
+        already registered.  Restores the global model, the server-optimizer
+        state, the round and version counters, the learner profiles, the
+        store contents and the journal cursor; the next ``engine.run``
+        continues the interrupted workflow and, at matching data and batch
+        schedules, produces bit-identical global models.  ``step=None``
+        picks the latest checkpoint.  Returns the checkpoint's meta block.
+        """
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        directory = directory if directory is not None else self.checkpoint_dir
+        if directory is None:
+            raise ValueError("restore needs a directory "
+                             "(or Controller(checkpoint_dir=...))")
+        params, extras, meta = ckpt.restore_checkpoint(directory, step, device=self.device)
+        for key, mine in (
+            ("protocol", type(self.protocol).__name__),
+            ("store_mode", self.store_mode),
+            ("secure", bool(self.secure)),
+            ("aggregation_rule", self.aggregation_rule),
+            ("arena_dtype", self.arena_dtype),
+            ("sparse_mode", self.sparse_mode),
+        ):
+            if key in meta and meta[key] != mine:
+                raise ValueError(
+                    f"checkpoint was written with {key}={meta[key]!r}; "
+                    f"this controller has {key}={mine!r}"
+                )
+        self.set_initial_model(params)
+        # Server-optimizer state: graft the saved leaves onto the structure
+        # of the freshly initialized state (same optimizer config, same
+        # structure), Python-scalar leaves back as their own type.
+        fresh_leaves, structure = flatten(self._server_state)
+        restored_leaves = []
+        for i, fresh in enumerate(fresh_leaves):
+            saved = extras[f"server_state_{i}"]
+            if isinstance(fresh, (bool, int, float)):
+                restored_leaves.append(type(fresh)(saved.item()))
+            else:
+                restored_leaves.append(torch.from_numpy(np.array(saved)).to(self.device))
+        self._server_state = unflatten(structure, restored_leaves)
+        self.round_id = int(meta["round_id"])
+        self._model_version = int(meta["model_version"])
+        self._g_version.set(self._model_version)
+        self._learner_versions.update(
+            {k: int(v) for k, v in meta.get("learner_versions", {}).items()}
+        )
+        self.engine.aggregates_fired = int(meta.get("aggregates_fired", 0))
+        for lid, saved_prof in meta.get("profiles", {}).items():
+            prof = LearnerProfile(decay=float(saved_prof["decay"]))
+            prof.observations = int(saved_prof["observations"])
+            prof.rep_observations = int(saved_prof.get("rep_observations", 0))
+            prof.update(saved_prof.get("data", {}))
+            self._learner_profiles[lid] = prof
+        self._deregistered_at = {
+            k: int(v) for k, v in meta.get("deregistered_at", {}).items()
+        }
+        adm = meta.get("admission") or {}
+        ewma = adm.get("ewma")
+        self._adm_ewma = None if ewma is None else float(ewma)
+        self._adm_accepted = int(adm.get("accepted", 0))
+        self._offenses = {
+            lid: (float(score), int(rnd))
+            for lid, (score, rnd) in meta.get("offenses", {}).items()
+        }
+        self._quarantined = set(meta.get("quarantined", []))
+        self._g_quarantine.set(len(self.quarantined_ids()))
+        self.engine._late_carry = list(meta.get("late_carry", []))
+        self.engine._buffer = list(meta.get("pending_buffer", []))
+        if "pending_dispatch" in meta:
+            self.engine._resume_dispatch = list(meta["pending_dispatch"])
+        if self.arena is not None and "arena_rows" in meta:
+            self.arena.restore_state(
+                buffer=extras["arena_buffer"],
+                weights=extras["arena_weights"],
+                versions=extras["arena_versions"],
+                valid=extras["arena_valid"],
+                rows=meta["arena_rows"],
+                scales=extras.get("arena_scales"),
+            )
+        elif self.store_mode == "stack" and "stack_records" in meta:
+            self.store.restore_records([
+                ModelRecord(
+                    learner_id=rec["learner_id"],
+                    round_id=int(rec["round_id"]),
+                    buffer=torch.from_numpy(np.array(extras[f"stackbuf_{j}"])).to(self.device),
+                    num_examples=int(rec["num_examples"]),
+                    metadata=dict(rec.get("metadata", {})),
+                )
+                for j, rec in enumerate(meta["stack_records"])
+            ])
+        self.invalidate_wire_cache()
+        self.journal.seek(int(meta.get("journal_cursor", 0)))
+        return meta
 
     # -------------------------------------------------------------- lifecycle
     def shutdown(self) -> None:

@@ -28,7 +28,11 @@ default stream, which keeps it correct.  The transport fault fates stamped
 by ``core/faults.FaultyChannel`` are enacted here: a ``lost`` upload is never
 ingested (the round's quorum shrinks; a continuous learner gets a retry
 leg), a ``dup`` upload is delivered twice, the second copy handled inline.
-Checkpoints (the reference's pre-checkpoint drain) are slice B-2 of the port.
+With ``checkpoint_every=k`` the engine checkpoints the federation every k
+completed rounds or community updates, at the boundary and before the next
+dispatch, after draining the tasks in flight into engine state without
+firing aggregates; a restored controller's engine owes exactly the
+dispatches that were about to leave.
 """
 
 from __future__ import annotations
@@ -273,15 +277,21 @@ class RoundEngine:
         self._c_deadline = self.telemetry.counter("engine.faults.deadline_fires")
         self.aggregates_fired = 0  # lifetime AggregateFired count
         self._outstanding = 0  # dispatched-but-not-arrived tasks (loop thread only)
-        # Continuous-policy state that outlives a single run() call: the
-        # FedBuff arrival buffer and the stragglers owed to the next
-        # round-based aggregate.
+        # Continuous-policy state that outlives a single run() call (and is
+        # checkpointed): the FedBuff arrival buffer, the stragglers owed to
+        # the next round-based aggregate, and the dispatch list a restored
+        # checkpoint owes its first round.
         self._buffer: list[str] = []
         self._late_carry: list[str] = []
-        # Continuous-mode learners owed a re-dispatch after a checkpoint
-        # (the reference's pre-checkpoint drain, slice B-2 of the port);
-        # without checkpoints a lost upload is retried at once, so this
-        # stays empty.
+        self._resume_dispatch: list[str] | None = None
+        self._pending_dispatch: list[str] | None = None  # set around save_checkpoint
+        # Continuous-mode learners whose upload was lost or rejected while a
+        # pre-checkpoint drain absorbed arrivals (fire=False, so the usual
+        # immediate retry leg must not run): they are owed a re-dispatch once
+        # the checkpoint is written, and join the checkpointed pending
+        # dispatch list so a restored run owes them too.  Without this they
+        # would leave the rotation, and a buffer_k == fleet-size policy could
+        # never fill its buffer again.
         self._retry_pending: list[str] = []
         # Loop-thread mirror of channel.upload_bytes, advanced as arrivals are
         # processed, so aggregate records carry a deterministic uplink total.
@@ -361,11 +371,17 @@ class RoundEngine:
             **kwargs,
         )
         if continuous:
-            # Learners already sitting in the FedBuff buffer have an
-            # ingested-but-unaggregated row; re-dispatching them would
-            # overwrite it before it is reduced.
-            buffered = set(self._buffer)
-            state.cohort = [lid for lid in state.cohort if lid not in buffered]
+            if self._resume_dispatch is not None:
+                # A restored checkpoint owes exactly the dispatches that were
+                # about to leave when the state was saved.
+                state.cohort = [lid for lid in self._resume_dispatch if lid in c._learners]
+                self._resume_dispatch = None
+            else:
+                # Learners already sitting in the FedBuff buffer have an
+                # ingested-but-unaggregated row; re-dispatching them would
+                # overwrite it before it is reduced.
+                buffered = set(self._buffer)
+                state.cohort = [lid for lid in state.cohort if lid not in buffered]
         if not state.cohort and not self._buffer:
             raise RuntimeError("no learners selected for dispatch")
         state.t_train = time.perf_counter()
@@ -408,7 +424,11 @@ class RoundEngine:
 
     # -- the loop -----------------------------------------------------------
     def run(
-        self, rounds: int | None = None, total_updates: int | None = None
+        self,
+        rounds: int | None = None,
+        total_updates: int | None = None,
+        checkpoint_every: int | None = None,
+        checkpoint_dir: str | None = None,
     ) -> list[RoundTimings]:
         """Drive the federation: ``rounds=`` for round-based policies,
         ``total_updates=`` for the continuous ones.
@@ -417,10 +437,21 @@ class RoundEngine:
         update (continuous runs may append a few extra entries: tasks still
         in flight when the target is reached are drained and, as the paper's
         per-arrival semantics say, still aggregated).
+
+        ``checkpoint_every=k`` persists the federation state
+        (``Controller.save_checkpoint``) every k completed rounds or updates,
+        before the next dispatch, so a killed run restores at a boundary and
+        replays forward bit-identically.  Both knobs default to the
+        controller's ``checkpoint_every``/``checkpoint_dir``.
         """
         c = self.controller
         if c.global_params is None:
             raise RuntimeError("set_initial_model() before running rounds")
+        if checkpoint_every is None:
+            checkpoint_every = getattr(c, "checkpoint_every", None)
+        if checkpoint_dir is None:
+            checkpoint_dir = getattr(c, "checkpoint_dir", None)
+        ckpt_every = int(checkpoint_every or 0)
         continuous = bool(getattr(c.protocol, "continuous", False))
         if continuous:
             if total_updates is None:
@@ -438,6 +469,34 @@ class RoundEngine:
         out: list[RoundTimings] = []
         completed = 0
         state: _RoundState | None = None
+
+        def drain_outstanding() -> None:
+            # Absorb every in-flight arrival into engine state (buffer,
+            # arrived set, late carry) without firing aggregates, so the
+            # state a checkpoint writes is quiescent.
+            while self._outstanding > 0:
+                ev = self._events.get()
+                if isinstance(ev, UploadArrived):
+                    handle_upload(ev, fire=False)
+                else:
+                    self._log(ev)
+
+        def maybe_checkpoint(pending: list[str] | None = None) -> None:
+            # At a boundary, before the next dispatch: the saved state has no
+            # partial-round arrivals to reconcile on restore.
+            if ckpt_every and checkpoint_dir and c.round_id % ckpt_every == 0:
+                drain_outstanding()
+                pend = list(pending) if pending is not None else None
+                if self._retry_pending:
+                    # Learners whose upload the drain lost are owed their
+                    # retry leg alongside the buffer members.
+                    pend = pend if pend is not None else []
+                    pend += [x for x in self._retry_pending if x not in pend]
+                self._pending_dispatch = pend
+                try:
+                    c.save_checkpoint(checkpoint_dir)
+                finally:
+                    self._pending_dispatch = None
 
         def fire_round(trigger: str | None, partial: bool = False) -> None:
             # Round-based aggregate: reduce what arrived (plus carried-over
@@ -470,6 +529,7 @@ class RoundEngine:
             c.round_id += 1
             completed += 1
             self._observe_round(state.timings)
+            maybe_checkpoint()
             if completed < target:
                 state = self._start_round()
 
@@ -515,10 +575,14 @@ class RoundEngine:
                 c.round_id += 1
                 completed += 1
                 self._observe_round(timings)
+                # The members get the fresh model at once (one shared
+                # broadcast); checkpointed first, so a restored run owes
+                # exactly these dispatches.
+                redisp = [lid for lid in members if lid in c._learners]
+                maybe_checkpoint(pending=redisp)
                 if completed < target:
-                    # The members get the fresh model at once, off one shared
-                    # broadcast, with any learner owed a retry leg.
-                    redisp = [lid for lid in members if lid in c._learners]
+                    # Learners lost during a drain rejoin the rotation with
+                    # the buffer members.
                     redisp += [lid for lid in self._retry_pending
                                if lid in c._learners and lid not in redisp]
                     b = c._broadcast()
@@ -526,23 +590,28 @@ class RoundEngine:
                         self._dispatch_one(lid, b)
                 self._retry_pending = []
 
-        def drop(lid: str) -> None:
+        def drop(lid: str, fire: bool) -> None:
             # A round-based cohort member that can no longer deliver.
             if not state.aggregated:
                 if lid in state.cohort and lid not in state.arrived_ids:
                     state.dropped.add(lid)
-                check_round_progress(lid)
+                if fire:
+                    check_round_progress(lid)
 
-        def retry_or_drop(lid: str) -> None:
+        def retry_or_drop(lid: str, fire: bool) -> None:
             # Nothing was stored: a continuous learner gets a fresh leg at
-            # once; a round-based cohort shrinks its quorum.
+            # once (after the checkpoint, when a drain absorbed it); a
+            # round-based cohort shrinks its quorum.
             if continuous:
-                if completed < target:
-                    self._dispatch_one(lid, c._broadcast())
+                if fire:
+                    if completed < target:
+                        self._dispatch_one(lid, c._broadcast())
+                elif lid not in self._retry_pending:
+                    self._retry_pending.append(lid)
             else:
-                drop(lid)
+                drop(lid, fire)
 
-        def handle_upload(event: UploadArrived) -> None:
+        def handle_upload(event: UploadArrived, fire: bool = True) -> None:
             if not event.duplicate:
                 self._outstanding -= 1
             if event.error is not None:
@@ -565,7 +634,7 @@ class RoundEngine:
                 if prof is not None:
                     prof.observe_contribution(0.0)
                 if not continuous:
-                    drop(lid)
+                    drop(lid, fire)
                 return
             if fault == "lost":
                 # The uplink dropped the payload: nothing to ingest.
@@ -574,7 +643,7 @@ class RoundEngine:
                 prof = c._learner_profiles.get(lid)
                 if prof is not None:
                     prof.observe_contribution(0.0)
-                retry_or_drop(lid)
+                retry_or_drop(lid, fire)
                 return
             ctx: dict[str, Any] = {"staleness": staleness, "up_bytes": up_bytes}
             if event.duplicate:
@@ -604,7 +673,7 @@ class RoundEngine:
                 if prof is not None:
                     prof.observe_contribution(0.0)
                 self._note_offense(lid)
-                retry_or_drop(lid)
+                retry_or_drop(lid, fire)
                 return
             if clip is not None and not event.duplicate:
                 # Ingested rescaled: half reputation credit, an offense mark.
@@ -627,12 +696,13 @@ class RoundEngine:
                 # aggregate that advances the round, so this frame must not
                 # fall through (a phantom buffer member / spurious late carry).
                 self._c_dup.add(1)
-                handle_upload(dataclasses.replace(event, duplicate=True))
+                handle_upload(dataclasses.replace(event, duplicate=True), fire=fire)
                 return
             if continuous:
                 if lid not in self._buffer:
                     self._buffer.append(lid)
-                pump_continuous()
+                if fire:
+                    pump_continuous()
                 return
             if int(event.update.round_id) < c.round_id or state.aggregated:
                 # Straggler from an already-aggregated round (the deadline
@@ -640,19 +710,20 @@ class RoundEngine:
                 self._c_late.add(1)
                 if lid not in self._late_carry:
                     self._late_carry.append(lid)
-                if not state.aggregated:
+                if fire and not state.aggregated:
                     check_round_progress(lid)  # deadlock check, never a count
                 return
             if lid in state.cohort and lid not in state.arrived_ids:
                 state.arrived_ids.add(lid)
                 state.arrived += 1
-            check_round_progress(lid)
+            if fire:
+                check_round_progress(lid)
 
         try:
             state = self._start_round()
             if continuous:
-                # A buffer carried from an earlier run() may already satisfy
-                # the policy.
+                # A buffer carried from an earlier run() or restored from a
+                # checkpoint may already satisfy the policy.
                 pump_continuous()
             # Terminates when the target is met AND nothing is in flight or
             # queued.

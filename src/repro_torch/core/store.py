@@ -168,6 +168,21 @@ class ModelStore:
         """Total stored records across all learners and lineages."""
         return sum(len(lin) for lin in self._records.values())
 
+    # -- checkpointing ------------------------------------------------------
+    def export_records(self) -> list[ModelRecord]:
+        """Every stored record in insertion order (checkpoint save)."""
+        return [rec for lin in self._records.values() for rec in lin]
+
+    def restore_records(self, records: Sequence[ModelRecord]) -> None:
+        """Replace the store's contents (checkpoint restore).
+
+        Rebuilds lineages in the given order without touching the cumulative
+        ingest counters: a restore is not new wire traffic.
+        """
+        self._records.clear()
+        for rec in records:
+            self._records.setdefault(rec.learner_id, []).append(rec)
+
 
 # ---------------------------------------------------------------------------
 # Device-resident aggregation arena
@@ -436,6 +451,18 @@ class ArenaStore:
                 return x[: self.num_params]
             return self.buffer[row, : self.num_params]
 
+    def weight_of(self, learner_id: str) -> float:
+        """Host-mirrored aggregation weight of a learner's current upload."""
+        with self.lock:
+            return float(self._weights_host[self._rows[learner_id]])
+
+    def version_of(self, learner_id: str) -> float:
+        """Host-mirrored model version a learner's current upload trained from
+        (the secure async path derives staleness weights from it before the
+        fixed-point masking, with no device read)."""
+        with self.lock:
+            return float(self._versions_host[self._rows[learner_id]])
+
     def round_mask(self, learner_ids: Sequence[str] | None = None) -> torch.Tensor:
         """Validity mask restricted to a selection (the round's cohort).
 
@@ -491,3 +518,83 @@ class ArenaStore:
             self.buffer.nbytes + scales + self.weights.nbytes + self.versions.nbytes
             + self.mask.nbytes
         )
+
+    # -- checkpointing ------------------------------------------------------
+    def export_state(self) -> dict:
+        """Host-side copy of the arena's full state (checkpoint save).
+
+        Returns ``buffer`` (the full ``(n_max, padded_params)`` array, f32 or
+        int8), the host ``weights``/``versions``/``valid`` mirrors and the
+        ``rows`` learner→row map; an int8 arena adds ``scales`` (the
+        ``(n_max, padded_params/group)`` f32 array).  Both round trips
+        through ``.npz`` are bit-exact, so a restored arena aggregates
+        bit-identically.
+        """
+        with self.lock:
+            state = {
+                "buffer": self.buffer.cpu().numpy(),
+                "weights": self._weights_host.copy(),
+                "versions": self._versions_host.copy(),
+                "valid": self._valid.copy(),
+                "rows": dict(self._rows),
+            }
+            if self.scales is not None:
+                state["scales"] = self.scales.cpu().numpy()
+            return state
+
+    def restore_state(
+        self,
+        buffer: np.ndarray,
+        weights: np.ndarray,
+        versions: np.ndarray,
+        valid: np.ndarray,
+        rows: dict[str, int],
+        scales: np.ndarray | None = None,
+    ) -> None:
+        """Reload a checkpointed arena state (inverse of :meth:`export_state`).
+
+        The arena must have the same ``num_params`` and row alignment
+        (``padded_params`` must match).  Capacity adapts: the restored state
+        is padded (or the arena grown) to cover both the saved rows and any
+        already assigned.  An int8 arena needs ``scales``.
+        """
+        host_dt = np.int8 if self.arena_dtype == "int8" else np.float32
+        row_width = self.padded_params
+        buffer = np.asarray(buffer, host_dt)
+        if buffer.ndim != 2 or buffer.shape[1] != row_width:
+            raise ValueError(
+                f"checkpointed arena rows hold {buffer.shape[-1]} params, "
+                f"this arena holds {row_width}"
+            )
+        if self.arena_dtype == "int8":
+            if scales is None:
+                raise ValueError(
+                    "restoring an int8 arena needs the checkpointed scales"
+                )
+            scales = np.asarray(scales, np.float32)
+            n_groups = self.padded_params // self.qgroup
+            if scales.ndim != 2 or scales.shape[1] != n_groups:
+                raise ValueError(
+                    f"checkpointed scales hold {scales.shape[-1]} groups, "
+                    f"this arena wants {n_groups}"
+                )
+        with self.lock:
+            n = max(self.n_max, buffer.shape[0], len(rows))
+            full = np.zeros((n, row_width), host_dt)
+            full[: buffer.shape[0]] = buffer
+            self._valid = np.zeros((n,), bool)
+            self._valid[: len(valid)] = np.asarray(valid, bool)
+            self._weights_host = np.zeros((n,), np.float32)
+            self._weights_host[: len(weights)] = np.asarray(weights, np.float32)
+            self._versions_host = np.zeros((n,), np.float32)
+            self._versions_host[: len(versions)] = np.asarray(versions, np.float32)
+            self._rows = {str(k): int(v) for k, v in rows.items()}
+            self.buffer = torch.from_numpy(full).to(self.device)
+            if self.arena_dtype == "int8":
+                full_s = np.zeros((n, self.padded_params // self.qgroup), np.float32)
+                full_s[: scales.shape[0]] = scales
+                self.scales = torch.from_numpy(full_s).to(self.device)
+            self.weights = torch.from_numpy(self._weights_host.copy()).to(self.device)
+            self.versions = torch.from_numpy(self._versions_host.copy()).to(self.device)
+            self.mask = torch.from_numpy(self._valid.astype(np.float32)).to(self.device)
+            self._g_resident.set(self.resident_bytes())

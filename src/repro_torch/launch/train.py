@@ -13,9 +13,11 @@ the workflow: ``sync`` and ``semi_sync`` run ``--rounds`` rounds, ``async``
 ``--rounds`` community updates.  ``--server-opt``, ``--selection``/
 ``--fraction`` and ``--prox-mu`` set the server optimizer, cohort selection
 and FedProx term as in the reference's launcher.  ``--quantize`` ships the
-downlink through the int8 codec (``kernels/ops.QuantCodec``).  ``--device
-cpu`` runs on the host.  Other architectures are slice H of the port;
-``--secure`` and ``--checkpoint-dir`` are slices E and B-2.
+downlink through the int8 codec (``kernels/ops.QuantCodec``).  ``--secure``
+aggregates masked fixed-point uploads (``core/secure.py``).
+``--checkpoint-dir DIR`` saves the final global model there
+(``repro_torch.checkpoint.save_checkpoint``) and prints its path.  ``--device
+cpu`` runs on the host.  Other architectures are slice H of the port.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim as optim_mod
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import housing_mlp
 from repro_torch.core import (
     Driver,
@@ -100,8 +103,10 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--selection", default="all", choices=["all", "random", "stratified"])
     ap.add_argument("--fraction", type=float, default=1.0)
     ap.add_argument("--prox-mu", type=float, default=0.0)
+    ap.add_argument("--secure", action="store_true")
     ap.add_argument("--quantize", action="store_true",
                     help="int8 transport codec (hand-written Hopper kernels)")
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -129,6 +134,7 @@ def main(argv: list[str] | None = None):
         prox_mu=args.prox_mu,
         selection=SelectionPolicy(kind=args.selection, fraction=args.fraction),
         server_optimizer=args.server_opt,
+        secure_aggregation=args.secure,
         termination=TerminationCriteria(max_rounds=args.rounds),
         device=device,
     )
@@ -156,6 +162,13 @@ def main(argv: list[str] | None = None):
     stats = driver.controller.channel.stats
     print(f"\ntotal wall: {wall:.2f}s; wire bytes: {stats.bytes_moved:,}; "
           f"messages: {stats.messages}; serialize: {stats.serialize_s:.3f}s")
+
+    if args.checkpoint_dir:
+        path = save_checkpoint(
+            args.checkpoint_dir, len(history), driver.controller.global_params,
+            metadata={"arch": args.arch, "rounds": len(history)},
+        )
+        print(f"checkpoint: {path}")
     return driver, history
 
 

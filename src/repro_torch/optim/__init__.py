@@ -1,5 +1,27 @@
 """Local optimizers of the port."""
 
-from repro_torch.optim.optimizers import Optimizer, OptState, apply_fedprox, sgd
+from repro_torch.optim.optimizers import (
+    AdafactorState,
+    AdamState,
+    Optimizer,
+    OptState,
+    adafactor,
+    adam,
+    adamw,
+    apply_fedprox,
+    momentum,
+    sgd,
+)
 
-__all__ = ["Optimizer", "OptState", "sgd", "apply_fedprox"]
+__all__ = [
+    "Optimizer",
+    "OptState",
+    "AdamState",
+    "AdafactorState",
+    "sgd",
+    "momentum",
+    "adam",
+    "adamw",
+    "adafactor",
+    "apply_fedprox",
+]

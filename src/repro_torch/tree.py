@@ -6,8 +6,9 @@ pytrees, so leaf order and leaf names must match the reference exactly:
 
 * dicts are walked in **sorted key order** (``tree_flatten_with_path`` sorts
   dict keys; a ``state_dict`` would keep insertion order instead), lists and
-  tuples in index order;
-* a leaf is named like ``jax.tree_util.keystr``: ``['layers'][0]['b']``.
+  tuples in index order, named tuples (optimizer states) in field order;
+* a leaf is named like ``jax.tree_util.keystr``: ``['layers'][0]['b']``, and
+  a named tuple's field like ``.m``.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ __all__ = ["Structure", "flatten_with_path", "flatten", "unflatten", "tree_map"]
 class Structure:
     """The container skeleton of a tree (the counterpart of a ``treedef``).
 
-    ``kind`` is ``"dict"``, ``"list"``, ``"tuple"`` or ``"leaf"``; ``keys``
-    holds the sorted dict keys; ``children`` the sub-structures in walk order.
+    ``kind`` is ``"dict"``, ``"list"``, ``"tuple"``, ``"namedtuple"`` or
+    ``"leaf"``; ``keys`` holds the sorted dict keys (a named tuple's class);
+    ``children`` the sub-structures in walk order.
     """
 
     __slots__ = ("kind", "keys", "children")
@@ -57,6 +59,11 @@ def flatten_with_path(tree: Any) -> tuple[list[tuple[str, Any]], Structure]:
             return Structure(
                 "dict", keys, tuple(walk(node[k], f"{path}[{k!r}]") for k in keys)
             )
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return Structure(
+                "namedtuple", (type(node),),
+                tuple(walk(v, f"{path}.{f}") for f, v in zip(node._fields, node)),
+            )
         if isinstance(node, (list, tuple)):
             kind = "list" if isinstance(node, list) else "tuple"
             return Structure(
@@ -85,6 +92,8 @@ def unflatten(structure: Structure, leaves: list[Any]) -> Any:
         children = [build(c) for c in s.children]
         if s.kind == "dict":
             return dict(zip(s.keys, children))
+        if s.kind == "namedtuple":
+            return s.keys[0](*children)
         return children if s.kind == "list" else tuple(children)
 
     out = build(structure)

@@ -27,6 +27,12 @@ template sizes and of the switch to the rank-select past 64 rows, and at
 full width; each of quantize and the trimmed mean one device kernel a call.
 The robust rules' sorts (both medians, both trimmed means' plain versions)
 equal the host's bit for bit with a negative and a positive NaN in live rows.
+Secure aggregation: ``encode_fixed`` and the masked sum on the card equal the
+host's bit for bit (NaN, ±inf, values past ±2^31 once scaled, sums that wrap),
+though the card's pads (Philox) are not the host's (mt19937); the pads' sign
+bit is set in about half the draws.  The f32 and int8 arenas'
+``export_state``/``restore_state`` round trip through ``.npz`` is
+byte-identical at full width.
 """
 
 import numpy as np
@@ -36,6 +42,8 @@ import torch
 from repro_torch.configs import housing_mlp
 from repro_torch.core import Driver, FederationEnv, TerminationCriteria
 from repro_torch.core import aggregation as tagg
+from repro_torch.core import secure as tsec
+from repro_torch.core.store import ArenaStore
 from repro_torch.kernels import fedavg as tfed
 from repro_torch.kernels import fused_agg as tfused
 from repro_torch.kernels import ops as tops
@@ -561,3 +569,77 @@ def test_robust_sorts_put_every_nan_last_on_the_card(cuda_device, name):
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
     assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def _secure_inputs(n, p, seed):
+    """Normal rows, specials (NaN of both signs, ±inf, values past ±2^31 once
+    scaled, halves of the fixed-point step) in the first, and a block whose
+    weighted mean passes 2^31 once encoded, so the int32 sum wraps."""
+    rng = np.random.default_rng(seed)
+    rows = (rng.normal(size=(n, p)) * 100).astype(np.float32)
+    rows[0, :12] = [np.nan, -np.nan, np.inf, -np.inf, 32768.0, -32768.0, 1e30, -1e30,
+                    0.5 / 65536, 1.5 / 65536, 2.5 / 65536, -2.5 / 65536]
+    rows[:, 100:200] = 40000.0 - rng.random((n, 100)).astype(np.float32)
+    rows[1, 100:200:3] *= -1
+    return rows
+
+
+@pytest.mark.parametrize("n,p", [(2, 1000), (5, 4099), (32, 65_536)])
+def test_secure_sum_and_encode_on_the_card_match_the_host(cuda_device, n, p):
+    rows = _secure_inputs(n, p, seed=n)
+    weights = [float(i % 7 + 1) for i in range(n)]
+    host = torch.from_numpy(rows)
+    card = host.to(cuda_device)
+    for r in range(n):
+        assert torch.equal(tsec.encode_fixed(card[r]).cpu(), tsec.encode_fixed(host[r]))
+    got = tsec.secure_fedavg_arena(card, list(range(n)), weights, base_seed=n).cpu()
+    want = tsec.secure_fedavg_arena(host, list(range(n)), weights, base_seed=n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the pads cancel: the result is the unmasked wrapping sum, decoded
+    wsum = float(sum(weights))
+    total = torch.zeros(p, dtype=torch.int64)
+    for r in range(n):
+        enc = tsec.encode_fixed(host[r] * float(np.float32(weights[r] / wsum)))
+        total = (total + enc.to(torch.int64)) % (1 << 32)
+    plain = torch.where(total >= 1 << 31, total - (1 << 32), total).to(torch.int32)
+    assert bool((plain[100:200] < 0).any())  # the block wrapped
+    assert torch.equal(got.view(torch.int32),
+                       tsec.decode_fixed(plain).view(torch.int32))
+    # a single masked upload is the card's own: it differs from the host's
+    masker = tsec.PairwiseMasker(base_seed=n, participants=tuple(range(n)))
+    on_card = tsec.mask_upload(masker, 0, card[0]).cpu()
+    on_host = tsec.mask_upload(masker, 0, host[0])
+    assert float((on_card == on_host).float().mean()) < 0.01
+
+
+def test_secure_pads_set_the_sign_bit_in_half_the_draws(cuda_device):
+    pad = tsec.PairwiseMasker(base_seed=3, participants=tuple(range(4))).net_mask(
+        1, 1 << 22, device=cuda_device)
+    assert pad.device.type == "cuda" and pad.dtype == torch.int32
+    assert 0.499 < float((pad < 0).float().mean()) < 0.501
+
+
+@pytest.mark.parametrize("arena_dtype", ["f32", "int8"])
+def test_arena_checkpoint_round_trip_at_full_width(cuda_device, arena_dtype, tmp_path):
+    n = 32
+    src = ArenaStore(num_params=10_174_081, n_max=n, arena_dtype=arena_dtype,
+                     device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for i in range(n):
+        row = torch.randn((src.padded_params,), generator=gen, device=cuda_device) * 3
+        src.write(f"learner_{i:03d}", row, weight=float(i + 1), version=float(i % 3))
+    src.invalidate("learner_007")
+    state = src.export_state()
+    path = tmp_path / "arena.npz"
+    np.savez(path, **{k: v for k, v in state.items() if k != "rows"})
+    dst = ArenaStore(num_params=10_174_081, n_max=4, arena_dtype=arena_dtype,
+                     device=cuda_device)
+    with np.load(path) as z:
+        dst.restore_state(rows=state["rows"], **{k: z[k] for k in z.files})
+    assert dst.buffer.device.type == "cuda" and dst.buffer.dtype == src.buffer.dtype
+    assert torch.equal(dst.buffer.view(torch.uint8), src.buffer.view(torch.uint8))
+    if arena_dtype == "int8":
+        assert torch.equal(dst.scales.view(torch.int32), src.scales.view(torch.int32))
+    for name in ("weights", "versions", "mask"):
+        assert torch.equal(getattr(dst, name), getattr(src, name)), name
+    assert dst.valid_ids() == src.valid_ids() and "learner_007" not in dst

@@ -33,7 +33,9 @@ leaked = sorted(m for m in sys.modules
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 20, names
-assert {"repro_torch.core.faults", "repro_torch.kernels.robust"} <= set(names), names
+assert {"repro_torch.core.faults", "repro_torch.kernels.robust", "repro_torch.core.secure",
+        "repro_torch.core.naive", "repro_torch.checkpoint.checkpoint",
+        "repro_torch.optim.optimizers"} <= set(names), names
 """
 
 

@@ -150,12 +150,14 @@ def test_admission_screen_rejects_nan_row_in_both():
 
 
 def test_controller_refuses_later_slices():
-    for kwargs, slice_name in (({"secure": True}, "slice E"),
-                               ({"upload_codec": "topk"}, "slice F"),
-                               ({"arena_mesh": object()}, "slice G"),
-                               ({"checkpoint_every": 1}, "slice B")):
+    for kwargs, slice_name in (({"upload_codec": "topk"}, "slice F"),
+                               ({"arena_mesh": object()}, "slice G")):
         with pytest.raises(NotImplementedError, match=slice_name):
             TController(device="cpu", **kwargs)
-    # Slice D is ported: the robust rules construct.
+    # Slices D, B-2 and E are ported: the robust rules, checkpoints and
+    # secure aggregation construct.
     for rule in ("median", "trimmed_mean"):
         assert TController(device="cpu", aggregation_rule=rule).aggregation_rule == rule
+    assert TController(device="cpu", secure=True).secure
+    assert TController(device="cpu", checkpoint_every=1,
+                       checkpoint_dir="ckpt").checkpoint_every == 1
