@@ -34,7 +34,14 @@ nothing of the JAX package.  Phases, each printing its own lines:
              quantize row as the encoder calls it, ``ops.quantize`` on the
              unpadded row, on inputs in rotation), with the device kernels
              and device time the profiler sees per call and the host time
-             per call;
+             per call; then the top-k uplink's torch ops (no hand kernel:
+             the reference's are XLA ops): a full-width delta row with
+             planted ties, ±0 and a negative and a positive NaN gives
+             byte-identical ``TopkUploadCodec(k=158,976)`` wires on the card
+             and the host, f32 and int8 values; ``scatter_accumulate`` on
+             ``(32, 158,976)`` gives the same bits on two calls, the host's
+             at rtol 1e-6 and an f64 oracle's at 1e-6; the selection, the
+             encode and the scatter event-timed beside their bytes bounds;
 4. check   — small federations on the card agree with the same federations
              on the host: f32 (global buffer, rtol 1e-4 / atol 1e-5: the two
              devices sum in different orders across local steps), then the
@@ -61,11 +68,19 @@ nothing of the JAX package.  Phases, each printing its own lines:
              mid-buffer, each bit-identical to its uninterrupted run on the
              card and the uninterrupted runs within the bars above of the
              host's; a secure async federation (global buffer rtol 1e-4 /
-             atol 1e-5, counters equal); and a 2-round federation with each
-             local optimizer after SGD (momentum, Adam, AdamW, Adafactor;
-             rtol 1e-4 / atol 1e-5);
-5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100, ten
-             legs and a diagnostic, each reached as users reach it, with
+             atol 1e-5, counters equal); top-k federations at k = P/64
+             (sync direct, sync densify on the stack store, async direct,
+             FedBuff direct, int8 values densified into the int8 arena),
+             each gated by replaying the card run's envelopes in its
+             arrival order into a host controller (rtol 1e-4 / atol 1e-5,
+             the int8 bar on the int8 arena), the free-running card-against-
+             host difference printed only (a last-ulp difference in training
+             can move a near-tie across the k boundary), and a sync-direct
+             top-k federation killed and resumed bit-identical on the card;
+             and a 2-round federation with each local optimizer after SGD
+             (momentum, Adam, AdamW, Adafactor; rtol 1e-4 / atol 1e-5);
+5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100,
+             fourteen legs and a diagnostic, each reached as users reach it, with
              its launch counts zeroed just before it and read just after:
              ``launch/train.main``
              (f32 arena, raw codec); the stack store through
@@ -108,7 +123,16 @@ nothing of the JAX package.  Phases, each printing its own lines:
              --secure``, 2 rounds: each round's masked aggregate
              bit-identical to the unmasked wrapping int32 sum of
              ``encode_fixed(ŵ_i·row_i)`` over the same arena rows, and
-             within N/(2·2^16) + 1e-6 of kernel 1's FedAvg of them).  After the
+             within N/(2·2^16) + 1e-6 of kernel 1's FedAvg of them);
+             ``topk_direct`` (``Driver``/``FederationEnv(upload_codec=
+             TopkUploadCodec(k=158,976), sparse_mode="direct")``, 2 rounds:
+             1,271,808 upload bytes a learner, every upload landed in the
+             ``(32, 158,976)`` sparse arena and one scatter a round, no hand
+             kernel, about 32x fewer resident bytes than the arena leg, each
+             round's model change within 1e-6 of its f64 scatter of the
+             arena's values); ``topk_densify_int8`` (int8 values of group 64
+             densified into the int8 arena, 2 rounds: 804,816 bytes a
+             learner, kernel 3 on every upload and kernel 5 a round).  After the
              arena leg, the ``naive`` line: the paper's baseline,
              ``core/naive.naive_aggregate`` (host float64, tensor by tensor,
              learner by learner) over the arena's 32 uploads, timed against
@@ -155,7 +179,7 @@ GROUP = 256
 # full width.  ``deadline_32`` is a one-round diagnostic.
 LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 2, "int8_wire": 2, "trimmed_mean": 2,
               "median": 2, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 3,
-              "resume": 2, "secure": 2}
+              "resume": 2, "secure": 2, "topk_direct": 2, "topk_densify_int8": 2}
 ASYNC_UPDATES = 32  # the async leg's total_updates (one per learner)
 FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
 # The deadline_faults leg's dispatch workers.  With 32 (the default, one per
@@ -169,6 +193,9 @@ LOCAL_STEPS = 4
 BATCH = 100
 LR = 0.05
 INT8_ROW_BYTES = 10_333_440  # wire_layout(P_MAIN): 10,174,464 int8 + 39,744 f32 scales
+K_MAIN = P_MAIN // 64  # 158,976: the reference's k = P/64 for the top-k uplink
+TOPK_F32_BYTES = 1_271_808  # wire_layout_topk(P_MAIN, K_MAIN): int32 index + f32 value
+TOPK_INT8_BYTES = 804_816  # int32 index + int8 value a coordinate, 2,484 scales of 64
 TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
 BYZANTINE = dict(seed=7, adversarial_fraction=0.15, adversarial_fates=("scale", "sign_flip"))
 BYZ_COUNTERS = ("engine.faults.adversarial.scale", "engine.faults.adversarial.sign_flip",
@@ -236,6 +263,7 @@ def main() -> None:
     timing.update(time_int8_kernels(kq, kfed, kfu, dev, errs))
     errs["masked_trimmed_mean"] = check_trimmed_mean(krob, dev)
     timing.update(time_trimmed_mean(krob, dev, errs))
+    check_topk(dev, card)
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t_phase}),
           flush=True)
 
@@ -332,6 +360,7 @@ def main() -> None:
         g, h = golden["card"].cpu(), golden["host"]
         checks[name] = (within_q8_bar(g, h, f"check {name}") if kw.get("arena_dtype") == "int8"
                         else _close(g, h, 1e-4, atol=1e-5, what=f"check {name}"))
+    check_topk_federations(train, dev, task, checks)
     c_gpu, _ = run_controller(train, dev, AsyncProtocol(**task), 4, updates=6, secure=True)
     c_cpu, _ = run_controller(train, torch.device("cpu"), AsyncProtocol(**task), 4, updates=6,
                               secure=True)
@@ -384,6 +413,8 @@ def main() -> None:
 
     arena_models: list[torch.Tensor] = []  # the arena leg's global model, round by round
     secure_rounds: list[dict] = []  # the secure leg's aggregates and the rows they summed
+    topk_rounds: list[dict] = []  # the topk_direct leg's sparse arena and model, round by round
+    from repro_torch.core.transport import TopkUploadCodec
 
     legs = {
         "arena": lambda: _spy_evaluate(
@@ -410,6 +441,14 @@ def main() -> None:
         "resume": lambda: resume_leg(train, dev, arena_models),
         "secure": lambda: _spy_secure(secure_rounds, lambda: _controller(
             train.main(launcher(LEG_ROUNDS["secure"], "--secure")))),
+        "topk_direct": lambda: _spy_evaluate(
+            lambda c: topk_rounds.append(_sparse_round(c)),
+            lambda: _controller(run_federation(
+                train, dev, upload_codec=TopkUploadCodec(k=K_MAIN), sparse_mode="direct",
+                **fed("topk_direct")))),
+        "topk_densify_int8": lambda: _controller(run_federation(
+            train, dev, upload_codec=TopkUploadCodec(k=K_MAIN, value_dtype="int8"),
+            sparse_mode="densify", arena_dtype="int8", **fed("topk_densify_int8"))),
     }
 
     def expected(leg: str, c, history) -> dict:
@@ -431,6 +470,8 @@ def main() -> None:
             "deadline_faults": {"masked_fedavg": rounds},
             "resume": {"masked_fedavg": rounds},  # one a round, before and after the restore
             "secure": {},  # the masked int32 sum is plain tensor arithmetic, as in the reference
+            "topk_direct": {},  # selection and scatter are torch ops, as XLA ops in the reference
+            "topk_densify_int8": {"quantize": N_MAIN * rounds, "masked_fedavg_q8": rounds},
         }[leg]
 
     launches = dict.fromkeys(counters, 0)
@@ -455,11 +496,7 @@ def main() -> None:
                 arena_aggregation_s = [h_.aggregation_s for h_ in history]
             train_round_s[leg] = [h_.train_round_s for h_ in history]
             for h_ in history:
-                print(json.dumps({"phase": f"main.{leg}", "round": h_.round_id,
-                                  "aggregation_s": h_.aggregation_s,
-                                  "federation_round_s": h_.federation_round_s,
-                                  "train_round_s": h_.train_round_s,
-                                  "eval_round_s": h_.eval_round_s,
+                print(json.dumps({"phase": f"main.{leg}", **h_.as_row(),
                                   "eval_loss": h_.metrics["eval_loss"]}), flush=True)
                 assert math.isfinite(h_.metrics["eval_loss"]), h_.metrics
             assert len(history) == LEG_ROUNDS[leg], len(history)
@@ -475,7 +512,12 @@ def main() -> None:
             arena = c.arena
             resident[leg] = tel.value("store.arena.bytes_resident")
             assert arena.buffer.device.type == "cuda", arena.buffer.device
-            assert tuple(arena.buffer.shape) == (N_MAIN, P_MAIN), arena.buffer.shape
+            if leg == "topk_direct":
+                assert arena.arena_dtype == "topk" and arena.indices.device.type == "cuda"
+                assert arena.buffer.dtype == torch.float32 and arena.indices.dtype == torch.int32
+                assert tuple(arena.buffer.shape) == tuple(arena.indices.shape) == (N_MAIN, K_MAIN)
+            else:
+                assert tuple(arena.buffer.shape) == (N_MAIN, P_MAIN), arena.buffer.shape
         if leg in ("arena", "secure"):
             assert c.arena.buffer.dtype == torch.float32
             assert up == N_MAIN * rounds * 4 * P_MAIN, up
@@ -501,6 +543,26 @@ def main() -> None:
             assert tuple(c.arena.scales.shape) == (N_MAIN, P_MAIN // GROUP)
             shrink = resident["arena"] / resident["int8_arena"]
             assert 3.8 < shrink < 4.0, shrink
+        if leg.startswith("topk"):
+            direct = leg == "topk_direct"
+            per_upload = TOPK_F32_BYTES if direct else TOPK_INT8_BYTES
+            uploads = tel.value("channel.upload_messages")
+            assert up == N_MAIN * rounds * per_upload, up
+            assert tel.value("engine.uploads.sparse_direct") == (uploads if direct else 0)
+            assert tel.value("controller.aggregations.sparse_scatter") == (rounds if direct else 0)
+            assert tel.value("engine.uploads.quantized_direct") == 0
+            assert tel.value("controller.aggregations.fused_q8") == (0 if direct else rounds)
+            shrink = resident["arena"] / resident[leg]
+            if direct:
+                assert 31.9 < shrink < 32.1, shrink
+                check_topk_direct(c, topk_rounds)
+            else:
+                assert c.arena.buffer.dtype == torch.int8
+                assert 3.8 < shrink < 4.0, shrink
+            print(json.dumps({"phase": f"main.{leg}", "upload_bytes_per_upload": per_upload,
+                              "arena_over_topk_upload_bytes": 4 * P_MAIN / per_upload,
+                              "arena_over_topk_bytes_resident": shrink,
+                              "residual_norm": tel.value("learner.residual_norm")}), flush=True)
         if leg == "semi_sync":
             check_semi_sync(c, first_step_s)
         if leg == "async":
@@ -581,14 +643,16 @@ def _controller(run: tuple) -> tuple:
 
 
 def run_controller(train, dev, protocol, learners, rounds=0, updates=0, size="100k", lr=0.01,
-                   faults=None, workers=1, record_selected=False, optimizer=None, **ctrl_kw):
+                   faults=None, workers=1, record_selected=False, optimizer=None, spy=None,
+                   **ctrl_kw):
     """A ``Controller`` built directly, with the launcher's learners (same
     model, data and seed as ``train.main``; local SGD unless ``optimizer``
     is given), on a ``FaultyChannel`` when ``faults`` is a ``FaultSpec``'s
     fields; runs ``rounds`` rounds or ``updates`` community updates.
     ``record_selected`` keeps each round aggregate's learner list at
-    ``controller.selected``.  Returns ``(controller, history)``; the
-    controller is shut down."""
+    ``controller.selected``; ``spy(controller)`` runs before the first
+    round.  Returns ``(controller, history)``; the controller is shut
+    down."""
     from repro_torch import optim
     from repro_torch.core import Controller, FaultInjector, FaultSpec, FaultyChannel
     from repro_torch.models import mlp as mlp_model
@@ -613,6 +677,8 @@ def run_controller(train, dev, protocol, learners, rounds=0, updates=0, size="10
             return aggregate_round(selected)
 
         ctrl.aggregate_round = recording
+    if spy is not None:
+        spy(ctrl)
     try:
         if updates:
             history = ctrl.engine.run(total_updates=updates)
@@ -1684,6 +1750,289 @@ def time_trimmed_mean(krob, dev, errs: dict) -> dict:
     del rows
     torch.cuda.empty_cache()
     return {"masked_trimmed_mean": out[TRIM_K]}
+
+
+# ---------------------------------------------------------------------------
+# The top-k uplink (slice F): torch ops, as the reference's are XLA ops
+# ---------------------------------------------------------------------------
+
+
+def special_topk_row(n: int, seed: int) -> np.ndarray:
+    """Seeded f32 row with planted magnitude ties, ±0, ±inf, a negative
+    (0xFFC00000) and a positive NaN, and quarter-step values that tie often."""
+    rng = np.random.default_rng(seed)
+    row = (rng.normal(size=n) * 3).astype(np.float32)
+    pick = rng.choice(n, size=4096, replace=False)
+    row[pick[:2000]] = np.float32(row[pick[0]]) * np.where(np.arange(2000) % 2, 1, -1)
+    row[pick[2000]], row[pick[2001]] = 0.0, -0.0
+    row[pick[2002]] = np.uint32(0xFFC00000).view(np.float32)
+    row[pick[2003]] = np.nan
+    row[pick[2004]], row[pick[2005]] = np.inf, -np.inf
+    row[pick[2006:]] = np.round(row[pick[2006:]] * 4) / 4
+    return row
+
+
+def check_topk(dev, card: str) -> dict:
+    """The top-k uplink's torch ops at the main path's shapes.
+
+    A full-width delta row (``special_topk_row``) must give byte-identical
+    wires on the card and the host through ``TopkUploadCodec(k=K_MAIN)``,
+    f32 and int8 values; the named row of the issue selects ``[2, 4, 8, 1,
+    3, 7]`` on the card.  ``scatter_accumulate`` on a ``(32, K_MAIN)`` arena
+    must give the same bits on two calls, equal the host's at rtol 1e-6 and
+    an f64 oracle at atol = rtol = 1e-6.  Event-timed: the selection, the
+    encode (its transfer to the host included) and the scatter, each beside
+    its bytes bound; and, as a diagnostic, one ``index_add_`` over all
+    ``N·k`` weighted pairs, which the port does not use (its colliding
+    atomics make the sum's bits vary run to run)."""
+    from repro_torch.core.transport import TopkUploadCodec
+    from repro_torch.kernels import sparse_agg, topk
+
+    row = torch.from_numpy(special_topk_row(P_MAIN, 0))
+    x = row.to(dev)
+    wires = {}
+    for value_dtype, nbytes in (("f32", TOPK_F32_BYTES), ("int8", TOPK_INT8_BYTES)):
+        codec = TopkUploadCodec(k=K_MAIN, value_dtype=value_dtype)
+        on_card, on_host = codec.encode(x), codec.encode(row)
+        wires[value_dtype] = bool(np.array_equal(on_card, on_host))
+        _expect(wires[value_dtype] and on_card.nbytes == nbytes,
+                f"topk encode {value_dtype}: the card's {on_card.nbytes} wire bytes differ "
+                f"from the host's {on_host.nbytes}")
+    named = np.array([1, -3, np.nan, 3, np.uint32(0xFFC00000).view(np.float32), 0, -0.0, 2,
+                      np.inf], np.float32)
+    order = topk.topk_select(torch.from_numpy(named).to(dev), 6)[0].cpu().tolist()
+    _expect(order == [2, 4, 8, 1, 3, 7], f"topk_select on the card: {order}")
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    idx = torch.stack([torch.randperm(P_MAIN, generator=gen, device=dev)[:K_MAIN]
+                       for _ in range(N_MAIN)]).to(torch.int32)
+    val = torch.randn((N_MAIN, K_MAIN), generator=gen, device=dev) * 2
+    w = torch.rand((N_MAIN,), generator=gen, device=dev) * 100 + 1
+    mask = torch.ones((N_MAIN,), device=dev)
+    wn = w / w.sum()
+    scatter = lambda: sparse_agg.scatter_accumulate(idx, val, wn, mask, P_MAIN)  # noqa: E731
+    first, second = scatter(), scatter()
+    stable = _same_bits(first, second)
+    _expect(stable, "scatter_accumulate: two calls on the card differ")
+    host = sparse_agg.scatter_accumulate(idx.cpu(), val.cpu(), wn.cpu(), mask.cpu(), P_MAIN)
+    err_host = _close(first.cpu(), host, 1e-6, atol=0.0, what="scatter_accumulate card vs host")
+    contrib = (val.double() * wn.double()[:, None]).cpu().numpy().reshape(-1)
+    oracle = np.bincount(idx.cpu().numpy().reshape(-1), weights=contrib, minlength=P_MAIN)
+    err_f64 = _close(first.cpu(), torch.from_numpy(oracle), 1e-6, what="scatter_accumulate vs f64")
+
+    encode = TopkUploadCodec(k=K_MAIN)
+    flat_idx = idx.reshape(-1).to(torch.int64)
+    flat_contrib = (val * wn[:, None]).reshape(-1)
+    one_call = lambda: torch.zeros(P_MAIN, device=dev).index_add_(0, flat_idx, flat_contrib)  # noqa: E731
+    out = {
+        "select_ms": _time_ms(lambda: topk.topk_select(x, K_MAIN)),
+        "select_bound_ms": (4 * P_MAIN + 8 * K_MAIN) / HBM_BYTES_PER_S * 1e3,
+        "encode_ms": _time_ms(lambda: encode.encode(x), samples=5, inner=4),
+        "scatter_ms": _time_ms(scatter),
+        "scatter_bound_ms": (8 * N_MAIN * K_MAIN + 4 * P_MAIN) / HBM_BYTES_PER_S * 1e3,
+        "one_call_index_add_ms": _time_ms(one_call),
+    }
+    print(json.dumps({"phase": "kernels", "topk": {
+        "card": card, "shape": [N_MAIN, K_MAIN, P_MAIN], "wire_bytes_identical": wires,
+        "named_row_order": order, "scatter_bit_stable": stable,
+        "scatter_max_abs_err_vs_host": err_host, "scatter_max_abs_err_vs_f64": err_f64,
+        **out}}), flush=True)
+    return out
+
+
+def _record_topk(events: list):
+    """A ``run_controller`` spy keeping, in order, every ingested update (with
+    the model version its learner trained from) and every aggregate (its
+    arguments and the global model it committed, copied to the host)."""
+    def install(ctrl):
+        ingest = ctrl.ingest
+
+        def recording_ingest(update):
+            events.append(("ingest", update, ctrl._learner_versions.get(update.learner_id, 0)))
+            return ingest(update)
+
+        ctrl.ingest = recording_ingest
+        for name in ("aggregate_round", "aggregate_community", "aggregate_buffer"):
+            def recording(*args, _aggregate=getattr(ctrl, name), _name=name):
+                seconds = _aggregate(*args)
+                events.append((_name, args, ctrl.global_buffer.to("cpu", copy=True)))
+                return seconds
+
+            setattr(ctrl, name, recording)
+
+    return install
+
+
+def replay_on_host(train, events: list, name: str, protocol, learners: int, **ctrl_kw) -> float:
+    """Ingest the card run's envelopes, in its arrival order and at its
+    learners' model versions, into a host controller of the same
+    configuration, and fire the same aggregates: each committed model within
+    rtol 1e-4 / atol 1e-5 of the card's (on the int8 arena, ``within_q8_bar``).
+    Selection is discontinuous, so only a replay of the same wires can hold
+    the two devices to a tolerance; returns the largest error."""
+    from repro_torch import optim
+    from repro_torch.core import Controller
+    from repro_torch.core.engine import UploadRejectedError
+    from repro_torch.models import mlp as mlp_model
+
+    cpu = torch.device("cpu")
+    cfg, fleet = train.build_housing_learners("100k", learners, seed=0,
+                                              optimizer=optim.sgd(0.01), device=cpu)
+    host = Controller(protocol=protocol, arena_n_max=learners, max_dispatch_workers=1,
+                      device=cpu, **ctrl_kw)
+    host.set_initial_model(mlp_model.init_params(torch.Generator().manual_seed(0), cfg, cpu))
+    for learner in fleet:
+        host.register_learner(learner)
+    worst, aggregates = 0.0, 0
+    for kind, payload, extra in events:
+        if kind == "ingest":
+            host._learner_versions[payload.learner_id] = extra
+            try:
+                host.ingest(payload)
+            except UploadRejectedError:
+                pass
+            continue
+        getattr(host, kind)(*payload)
+        what = f"check {name}: aggregate {aggregates} replayed on the host"
+        if ctrl_kw.get("arena_dtype") == "int8":
+            err = within_q8_bar(extra, host.global_buffer, what)
+        else:
+            err = _close(extra, host.global_buffer, 1e-4, atol=1e-5, what=what)
+        worst, aggregates = max(worst, err), aggregates + 1
+    host.shutdown()
+    _expect(aggregates > 0, f"check {name}: no aggregate to replay")
+    return worst
+
+
+def _sent_indices(events: list) -> list:
+    """Each ingested top-k envelope's index block, in arrival order."""
+    from repro_torch.kernels.topk import effective_k
+
+    out = []
+    for kind, update, _ in events:
+        if kind == "ingest":
+            env = update.upload
+            k = effective_k(env.num_elements, env.codec_params["k"])
+            out.append(np.frombuffer(env.payload[: 4 * k].tobytes(), np.int32))
+    return out
+
+
+def check_topk_federations(train, dev, task: dict, checks: dict) -> None:
+    """Top-k federations at housing-mlp 100k, 4 learners, one dispatch worker,
+    k = P/64: sync direct, sync densify on the stack store, async direct (6
+    updates), FedBuff direct (K = 3, 2 updates) and int8 values densified
+    into the int8 arena (2 rounds each otherwise).  Each is gated card
+    against host by replay (``replay_on_host``); the free-running host run
+    is only printed beside it (its largest difference and how many sent
+    indices differ), since a last-ulp difference in training can move a
+    near-tie across the k boundary.  Then a sync-direct federation killed
+    after round 2 and resumed must end bit-identical to the uninterrupted
+    run on the card, the residuals and the sparse arena's indices riding
+    the checkpoint."""
+    from repro_torch import optim
+    from repro_torch.core import (AsyncProtocol, BufferedAsyncProtocol, SyncProtocol,
+                                  packing)
+    from repro_torch.core.transport import TopkUploadCodec
+    from repro_torch.models import mlp as mlp_model
+
+    cpu = torch.device("cpu")
+    cfg, _ = train.build_housing_learners("100k", 1, seed=0, optimizer=optim.sgd(0.01),
+                                          device=cpu)
+    p_small = packing.round_up(packing.num_params(
+        mlp_model.init_params(torch.Generator().manual_seed(0), cfg, cpu)), 1024)
+    k = p_small // 64
+    cases = {
+        "topk_sync_direct": dict(protocol=lambda: SyncProtocol(**task), rounds=2,
+                                 sparse_mode="direct"),
+        "topk_sync_densify_stack": dict(protocol=lambda: SyncProtocol(**task), rounds=2,
+                                        sparse_mode="densify", store_mode="stack"),
+        "topk_async_direct": dict(protocol=lambda: AsyncProtocol(**task), updates=6,
+                                  sparse_mode="direct"),
+        "topk_fedbuff_direct": dict(protocol=lambda: BufferedAsyncProtocol(buffer_k=3, **task),
+                                    updates=2, sparse_mode="direct"),
+        "topk_int8_densify_int8_arena": dict(protocol=lambda: SyncProtocol(**task), rounds=2,
+                                             sparse_mode="densify", value_dtype="int8",
+                                             arena_dtype="int8"),
+    }
+    for name, kw in cases.items():
+        kw = dict(kw)
+        protocol = kw.pop("protocol")
+        codec = TopkUploadCodec(k=k, value_dtype=kw.pop("value_dtype", "f32"))
+        runs = {}
+        for where, d in (("card", dev), ("host", cpu)):
+            events: list = []
+            c, _ = run_controller(train, d, protocol(), 4, lr=0.01, upload_codec=codec,
+                                  spy=_record_topk(events), **kw)
+            runs[where] = (c, events)
+        c_gpu, events = runs["card"]
+        c_cpu, host_events = runs["host"]
+        ctrl_kw = {key: v for key, v in kw.items() if key not in ("rounds", "updates")}
+        checks[name] = replay_on_host(train, events, name, protocol(), 4, upload_codec=codec,
+                                      **ctrl_kw)
+        tel = c_gpu.telemetry
+        uploads = tel.value("channel.upload_messages")
+        direct = kw["sparse_mode"] == "direct"
+        _expect(tel.value("engine.uploads.sparse_direct") == (uploads if direct else 0)
+                and (tel.value("controller.aggregations.sparse_scatter") > 0) == direct,
+                f"check {name}: sparse counters {_engine_counters(c_gpu)}")
+        card_idx, host_idx = _sent_indices(events), _sent_indices(host_events)
+        moved = sum(int(np.count_nonzero(a != b)) for a, b in zip(card_idx, host_idx))
+        free = float((c_gpu.global_buffer.cpu() - c_cpu.global_buffer).abs().max())
+        print(json.dumps({"phase": "check", "topk": name, "k": k, "uploads": uploads,
+                          "replay_max_abs_err": checks[name],
+                          "free_running_max_abs_diff": free,
+                          "free_running_sent_indices_differing": moved,
+                          "sent_indices": sum(a.size for a in card_idx),
+                          "counters": _engine_counters(c_gpu),
+                          "sparse_scatter": tel.value("controller.aggregations.sparse_scatter"),
+                          "fused_q8": tel.value("controller.aggregations.fused_q8")}),
+              flush=True)
+    golden = {where: check_resume(train, d, "resume_topk_direct",
+                                  protocol=lambda: SyncProtocol(**task), learners=3, steps=(2, 2),
+                                  every=2, upload_codec=TopkUploadCodec(k=k),
+                                  sparse_mode="direct")
+              for where, d in (("card", dev), ("host", cpu))}
+    print(json.dumps({"phase": "check", "resume": "resume_topk_direct",
+                      "free_running_card_vs_host_max_abs_diff":
+                          float((golden["card"].cpu() - golden["host"]).abs().max())}),
+          flush=True)
+
+
+def _sparse_round(c) -> dict:
+    """The sparse arena as a round's aggregate read it, and the model it
+    committed, copied to the host (after the aggregate, before evaluation)."""
+    arena = c.arena
+    host = {"indices": arena.indices, "values": arena.buffer, "weights": arena.weights,
+            "mask": arena.mask, "model": c.global_buffer}
+    return {k: v.to("cpu", copy=True) for k, v in host.items()}
+
+
+def check_topk_direct(c, rounds: list) -> None:
+    """Each round's committed model minus the one before, against the f64
+    scatter of the arena's values by ``ŵ`` at its indices, within 1e-6."""
+    from repro_torch.configs import housing_mlp
+    from repro_torch.core import packing
+    from repro_torch.models import mlp as mlp_model
+
+    assert len(rounds) == LEG_ROUNDS["topk_direct"], len(rounds)
+    cfg = housing_mlp.config(SIZE_MAIN)
+    before = packing.pack_numeric(
+        mlp_model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")).double()
+    p = c.arena.num_params
+    for r, rec in enumerate(rounds):
+        w = (rec["weights"] * rec["mask"]).double()
+        contrib = (rec["values"].double() * (w / w.sum())[:, None]).numpy().reshape(-1)
+        delta = np.bincount(rec["indices"].numpy().reshape(-1).astype(np.int64),
+                            weights=contrib, minlength=c.arena.padded_params)[:p]
+        after = rec["model"].double()
+        err = float(np.abs((after - before).numpy() - delta).max())
+        _expect(err <= 1e-6, f"topk_direct round {r}: the committed delta is {err} from "
+                             "its f64 scatter")
+        print(json.dumps({"phase": "main.topk_direct", "round": r,
+                          "max_abs_err_vs_f64_scatter": err,
+                          "coordinates_moved": int(np.count_nonzero(delta))}), flush=True)
+        before = after
+    rounds.clear()
 
 
 if __name__ == "__main__":

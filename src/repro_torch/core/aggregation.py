@@ -28,15 +28,19 @@ Each of those sorts first makes every NaN positive
 (``kernels/robust.positive_nan``): ``torch.sort`` on the card puts a negative
 NaN first, where the host and ``jnp.sort`` put every NaN last.
 
-The top-k forms and the sharded variants belong to later slices of the port
-(``ROADMAP.md``).
+The top-k rules (:func:`masked_fedavg_topk`, :func:`masked_staleness_topk`)
+reduce the sparse arena's ``(N, k)`` index/value rows through
+``kernels/sparse_agg.scatter_accumulate``: an XLA scatter in the reference,
+torch's ``index_add_`` one row at a time here, deterministic on the card.
+
+The sharded variants belong to slice G of the port (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sparse_agg
 from repro_torch.kernels.fedavg import masked_normalize
 from repro_torch.kernels.robust import positive_nan
 
@@ -49,6 +53,8 @@ __all__ = [
     "masked_staleness_average",
     "masked_fedavg_q8",
     "masked_staleness_q8",
+    "masked_fedavg_topk",
+    "masked_staleness_topk",
     "staleness_weights",
     "coordinate_median",
     "trimmed_mean",
@@ -146,6 +152,48 @@ def masked_staleness_q8(
     stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
     return ops.masked_fedavg_q8(q, scales, staleness_weights(num_examples, stal, alpha),
                                 mask, group)
+
+
+def masked_fedavg_topk(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    out_width: int,
+) -> torch.Tensor:
+    """Masked FedAvg straight off a sparse (top-k) arena — scatter, not stack.
+
+    ``(N, k)`` int32 × ``(N, k)`` f32 × ``(N,)`` × ``(N,)`` -> ``(out_width,)``:
+    the weights are normalized over the valid rows, then every valid row's
+    weighted ``(index, value)`` stream is scattered into the dense output, so
+    the ``(N, P)`` stack is never built.  Rows hold *deltas*; the controller
+    adds the aggregated delta onto the global buffer at commit.
+    """
+    m = torch.as_tensor(mask).to(values.device, torch.float32)
+    w = masked_normalize(weights, m)
+    return sparse_agg.scatter_accumulate(indices, values, w, m, out_width)
+
+
+def masked_staleness_topk(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    num_examples: torch.Tensor,
+    versions: torch.Tensor,
+    current_version: float,
+    mask: torch.Tensor,
+    out_width: int,
+    alpha: float = 0.5,
+) -> torch.Tensor:
+    """Staleness-damped masked scatter-accumulate over a sparse arena.
+
+    The sparse statement of :func:`masked_staleness_average`: the staleness
+    discount damps the ``(N,)`` weights, then one masked scatter-accumulate
+    folds every valid sparse row into the ``(out_width,)`` delta.
+    """
+    m = torch.as_tensor(mask).to(values.device, torch.float32)
+    stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
+    w = masked_normalize(staleness_weights(num_examples, stal, alpha), m)
+    return sparse_agg.scatter_accumulate(indices, values, w, m, out_width)
 
 
 def _robust_out_dtype(stack: torch.Tensor) -> torch.dtype:

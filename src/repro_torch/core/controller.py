@@ -1,9 +1,9 @@
 """The Federation Controller — model state, transport and store plumbing.
 
 The port of ``repro/core/controller.py`` for the ported slices: every
-protocol policy (round-based and continuous), the f32 or int8 arena or the
-stack store, the raw or int8 upload codec (and the int8 downlink codec),
-FedAvg and the robust rules, on one device.  The round engine
+protocol policy (round-based and continuous), the f32, int8 or sparse
+(top-k) arena or the stack store, the raw, int8 or top-k upload codec (and
+the int8 downlink codec), FedAvg and the robust rules, on one device.  The round engine
 (``core/engine.py``) drives protocols and calls back into this plumbing:
 
 * **serialize-once broadcast** — the global model is serialized at most once
@@ -12,14 +12,18 @@ FedAvg and the robust rules, on one device.  The round engine
 * **measured upload ingest** (:meth:`Controller.ingest`) — learners send
   packed rows through the measured uplink; arrival is a decode, the
   admission screen on the row's L2 norm, and an in-place arena row write.
-  An int8 upload into an int8 arena lands directly, still quantized;
+  An int8 upload into an int8 arena lands directly, still quantized, and a
+  top-k upload into the sparse arena (``sparse_mode="direct"``) as its
+  ``(index, value)`` stream;
 * **aggregation** (:meth:`Controller.aggregate_round`) — one masked FedAvg
   over the ``(n_max, P)`` arena, which on the card is a hand-written Hopper
   kernel (the fused dequant-into-aggregate on an int8 arena); or, under
   ``aggregation_rule="trimmed_mean"`` / ``"median"``, the robust order
   statistic (the trimmed mean through the hand-written sorting-network kernel,
-  the median through ``torch.sort``); then the server optimizer, a wait on
-  the device and the commit;
+  the median through ``torch.sort``); over the sparse arena, a masked
+  scatter-accumulate (``torch.index_add_`` row by row); then the server
+  optimizer, a wait on the device and the commit.  Top-k uploads carry
+  *deltas*, so the commit adds the aggregate onto the global model first;
 * **community updates** (:meth:`Controller.aggregate_community`,
   :meth:`Controller.aggregate_buffer`) — the continuous policies'
   staleness-damped reduce over every valid row (async) or exactly the
@@ -35,8 +39,8 @@ FedAvg and the robust rules, on one device.  The round engine
   (``repro_torch.checkpoint``), written by the engine every
   ``checkpoint_every`` rounds after it drains the tasks in flight.
 
-The top-k codec and arena and the sharded arena are later slices of the
-port: asking for them raises ``NotImplementedError`` at construction.
+The sharded arena is slice G of the port: asking for it raises
+``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -106,7 +110,13 @@ class Controller:
         arena store only, no custom aggregate function).
     flat_uploads / upload_codec:
         Ship the manifest at registration so learners upload packed rows
-        through the measured uplink; ``"raw"`` or ``"int8"``.
+        through the measured uplink; ``"raw"``, ``"int8"``, ``"topk"`` or a
+        codec object such as ``TopkUploadCodec(k=...)``.
+    sparse_mode:
+        How a top-k upload lands: ``"densify"`` scatters it into a dense row
+        (every store and rule keeps working), ``"direct"`` keeps an
+        ``(n_max, k)`` index/value arena and reduces it by a masked
+        scatter-accumulate (FedAvg and staleness weights, f32 arena only).
     admission_control and its knobs, quarantine_threshold / quarantine_decay:
         The upload admission screen (reject non-finite rows, clip norm
         outliers against an EWMA) and quarantine of repeat offenders, on by
@@ -196,9 +206,6 @@ class Controller:
         self.arena_dtype = arena_dtype
         if arena_mesh is not None:
             raise _later_slice("the mesh-sharded arena", "slice G")
-        if sparse_mode != "densify":
-            raise _later_slice(f"sparse_mode={sparse_mode!r}", "slice F")
-        self.sparse_mode = sparse_mode
         if store is not None and store_mode == "arena":
             raise ValueError(
                 "store= is only honoured with store_mode='stack'; the arena "
@@ -276,6 +283,56 @@ class Controller:
             )
         if upload_codec is not None:
             self.channel.upload_codec = get_upload_codec(upload_codec)
+        # Sparse (top-k) uplink: rows hold deltas, so every aggregate commits
+        # global_buffer + aggregated delta; sparse_mode picks how an upload
+        # lands (see the class docstring).
+        self._topk = getattr(self.channel.upload_codec, "codec_id", None) == "topk"
+        if sparse_mode not in ("direct", "densify"):
+            raise ValueError(
+                f"sparse_mode must be 'direct' or 'densify', got {sparse_mode!r}"
+            )
+        self.sparse_mode = sparse_mode
+        if self._topk:
+            if secure:
+                raise ValueError(
+                    "upload_codec='topk' cannot run under secure "
+                    "aggregation: the controller must densify and re-weight "
+                    "sparse deltas, and the masked fixed-point rows admit "
+                    "neither"
+                )
+            if not flat_uploads:
+                raise ValueError(
+                    "upload_codec='topk' requires flat_uploads=True: the "
+                    "error-feedback residual lives learner-side against "
+                    "the shipped wire manifest"
+                )
+            if aggregate_fn is not None or masked_aggregate_fn is not None:
+                raise ValueError(
+                    "upload_codec='topk' cannot honour a custom "
+                    "aggregate_fn/masked_aggregate_fn: sparse rows hold "
+                    "deltas, and custom rules expect full-parameter rows"
+                )
+        if sparse_mode == "direct":
+            if not self._topk:
+                raise ValueError("sparse_mode='direct' requires upload_codec='topk'")
+            if store_mode != "arena":
+                raise ValueError(
+                    "sparse_mode='direct' requires store_mode='arena'; the "
+                    "stack store keeps dense decoded buffers"
+                )
+            if aggregation_rule != "fedavg":
+                raise ValueError(
+                    "sparse_mode='direct' supports only "
+                    "aggregation_rule='fedavg'; the robust order-statistic "
+                    "rules need dense rows — use sparse_mode='densify' "
+                    f"(got {aggregation_rule!r})"
+                )
+            if arena_dtype != "f32":
+                raise ValueError(
+                    "sparse_mode='direct' keeps its own (n, k) sparse "
+                    "arena; it cannot combine with "
+                    f"arena_dtype={arena_dtype!r}"
+                )
         # One observability surface: the controller adopts its channel's registry.
         self.telemetry: Telemetry = self.channel.telemetry
         self.store.bind_telemetry(self.telemetry)
@@ -312,6 +369,10 @@ class Controller:
         # row, and fused dequant-into-aggregate reductions.
         self._c_quant_direct = self.telemetry.counter("engine.uploads.quantized_direct")
         self._c_fused_agg = self.telemetry.counter("controller.aggregations.fused_q8")
+        # Sparse-uplink fast paths: uploads landed in the (n, k) sparse arena
+        # with no densification, and masked scatter-accumulate reductions.
+        self._c_sparse_direct = self.telemetry.counter("engine.uploads.sparse_direct")
+        self._c_sparse_agg = self.telemetry.counter("controller.aggregations.sparse_scatter")
         self._c_quarantined = self.telemetry.counter("engine.quarantine.entered")
         self._g_quarantine = self.telemetry.gauge("engine.quarantine.active")
         self._store_lock = threading.Lock()
@@ -364,12 +425,14 @@ class Controller:
         self._server_state = self.server_opt.init(self.global_buffer)
         self.invalidate_wire_cache()
         if self.store_mode == "arena":
+            direct = self._topk and self.sparse_mode == "direct"
             self.arena = ArenaStore(
                 num_params=max(1, int(self.global_buffer.shape[0])),
                 n_max=max(self._arena_n_max, len(self._learners)),
                 row_align=self._arena_row_align,
                 telemetry=self.telemetry,
-                arena_dtype=self.arena_dtype,
+                arena_dtype="topk" if direct else self.arena_dtype,
+                sparse_k=self.channel.upload_codec.k if direct else None,
                 device=self.device,
             )
             # Rows follow registration order, so aggregation order is
@@ -540,9 +603,21 @@ class Controller:
         split on the device and copied into the row, with no f32 row and no
         requantization.  Its norm comes from the quantized form and clipping
         rescales the scales.  Counted in ``engine.uploads.quantized_direct``.
-        Returns the screen's clip info (``None`` when stored untouched).
+        A top-k upload into the sparse arena lands as its ``(index, value)``
+        stream (:meth:`_sparse_direct_ok`; the norm is the values' and
+        clipping rescales them), counted in ``engine.uploads.sparse_direct``;
+        anything else is refused there.  Returns the screen's clip info
+        (``None`` when stored untouched).
         """
         version = self._learner_versions.get(update.learner_id, 0)
+        if self._sparse_direct_ok(update):
+            return self._ingest_sparse(update, version)
+        if self.arena is not None and self.arena.arena_dtype == "topk":
+            raise ValueError(
+                "sparse_mode='direct' arena can only land registry "
+                "'topk' envelopes packed at the arena row width; got "
+                f"codec={getattr(update.upload, 'codec', None)!r}"
+            )
         if self._quant_direct_ok(update):
             return self._ingest_quantized(update, version)
         pad_to = self.arena.padded_params if self.store_mode == "arena" else None
@@ -594,12 +669,46 @@ class Controller:
         self._observe(update)
         return clip
 
+    def _ingest_sparse(self, update: LocalUpdate, version: int) -> dict | None:
+        """The sparse arena's direct landing of a top-k upload."""
+        idx, val, norm = self.channel.recv_upload_sparse(update.upload)
+        clip: dict | None = None
+        if self.admission_control:
+            scale, clip = self._screen_norm(update.learner_id, float(norm))
+            if scale is not None:
+                # Clipping a sparse row == rescaling its values (top-k indices
+                # are unique, so the value vector's norm is the row's).
+                val = val * torch.tensor(scale, dtype=torch.float32)
+        self.arena.write_sparse(
+            update.learner_id, idx, val,
+            weight=float(update.num_examples), version=float(version),
+        )
+        self._c_sparse_direct.add(1)
+        self._observe(update)
+        return clip
+
     def _observe(self, update: LocalUpdate) -> None:
         """Feed the learner's profile: step time and upload bytes."""
         prof = self._learner_profiles[update.learner_id]
         prof.observe_step_time(update.seconds_per_step)
         if update.upload is not None:
             prof.observe_upload_bytes(update.upload.payload.nbytes)
+
+    def _sparse_direct_ok(self, update: LocalUpdate) -> bool:
+        """True when the upload can land in the ``(n, k)`` sparse arena as-is.
+
+        Requires a ``sparse_mode="direct"`` arena and an envelope of the
+        registry ``topk`` codec packed at the arena's padded row width (the
+        ``flat_uploads`` fast path).
+        """
+        if self.arena is None or self.arena.arena_dtype != "topk":
+            return False
+        env = update.upload
+        return (
+            env is not None
+            and env.codec == "topk"
+            and int(env.num_elements) == self.arena.padded_params
+        )
 
     def _quant_direct_ok(self, update: LocalUpdate) -> bool:
         """True when the upload can land in the int8 arena without dequant.
@@ -655,7 +764,14 @@ class Controller:
 
     # ------------------------------------------------------------- aggregate
     def _commit(self, new_buffer: torch.Tensor) -> None:
-        """Server-side optimization + global model swap + version bump."""
+        """Server-side optimization + global model swap + version bump.
+
+        Top-k uplinks ship deltas, so the aggregate is a delta too: it is
+        folded onto the current global buffer first, which equals dense
+        FedAvg when every cohort member trained from the same broadcast.
+        """
+        if self._topk:
+            new_buffer = self.global_buffer + new_buffer
         self._server_state, new_buffer = self.server_opt.apply(
             self._server_state, self.global_buffer, new_buffer
         )
@@ -723,7 +839,14 @@ class Controller:
             if arena.num_valid(list(selected)) == 0:
                 raise RuntimeError("no local models available to aggregate")
             mask = arena.round_mask(list(selected))
-            if self.arena_dtype == "int8":
+            if arena.arena_dtype == "topk":
+                # Masked scatter-accumulate straight off the (n, k) sparse
+                # arena: the dense (N, P) stack is never built.
+                out = aggregation.masked_fedavg_topk(
+                    arena.indices, arena.buffer, arena.weights, mask, arena.padded_params
+                )
+                self._c_sparse_agg.add(1)
+            elif self.arena_dtype == "int8":
                 # Fused dequant-into-aggregate: the reduce reads the int8
                 # groups and scales directly, never building (N, P) f32.
                 out = aggregation.masked_fedavg_q8(
@@ -737,14 +860,22 @@ class Controller:
     def _staleness_reduce(self, mask: torch.Tensor, alpha: float) -> torch.Tensor:
         """Staleness-damped masked reduce over the arena (caller holds its lock).
 
-        ``s_i = model_version - v_i`` from the per-row versions; the int8
-        arena reduces through the fused dequant-into-aggregate (counted in
+        ``s_i = model_version - v_i`` from the per-row versions; the sparse
+        arena reduces through the masked scatter-accumulate (counted in
+        ``controller.aggregations.sparse_scatter``), the int8 arena through
+        the fused dequant-into-aggregate (counted in
         ``controller.aggregations.fused_q8``), the f32 arena through the
         masked FedAvg kernel.
         """
         arena = self.arena
         version = float(self._model_version)
-        if self.arena_dtype == "int8":
+        if arena.arena_dtype == "topk":
+            out = aggregation.masked_staleness_topk(
+                arena.indices, arena.buffer, arena.weights, arena.versions,
+                version, mask, arena.padded_params, alpha,
+            )
+            self._c_sparse_agg.add(1)
+        elif self.arena_dtype == "int8":
             out = aggregation.masked_staleness_q8(
                 arena.buffer, arena.scales, arena.weights, arena.versions,
                 version, mask, alpha, arena.qgroup,
@@ -930,6 +1061,8 @@ class Controller:
             extras["arena_valid"] = st["valid"]
             if st.get("scales") is not None:
                 extras["arena_scales"] = st["scales"]
+            if st.get("indices") is not None:
+                extras["arena_indices"] = st["indices"]
             meta["arena_rows"] = {k: int(v) for k, v in st["rows"].items()}
             meta["arena_dtype"] = self.arena_dtype
         elif self.store_mode == "stack":
@@ -945,6 +1078,19 @@ class Controller:
             ]
             for j, rec in enumerate(records):
                 extras[f"stackbuf_{j}"] = rec.buffer
+        if self._topk:
+            # The learners' error-feedback residuals are federation state:
+            # dropping them at resume would re-send mass the carry already
+            # accounted for.  The engine checkpoints after draining the tasks
+            # in flight, so the residuals are quiescent here.
+            meta["sparse_mode"] = self.sparse_mode
+            residual_learners = []
+            for lid, learner in self._learners.items():
+                res = learner.export_residual()
+                if res is not None:
+                    extras[f"residual__{lid}"] = res
+                    residual_learners.append(lid)
+            meta["residual_learners"] = residual_learners
         return ckpt.save_checkpoint(
             directory, step, self.global_params, extra_arrays=extras, metadata=meta,
         )
@@ -1033,6 +1179,7 @@ class Controller:
                 valid=extras["arena_valid"],
                 rows=meta["arena_rows"],
                 scales=extras.get("arena_scales"),
+                indices=extras.get("arena_indices"),
             )
         elif self.store_mode == "stack" and "stack_records" in meta:
             self.store.restore_records([
@@ -1045,6 +1192,10 @@ class Controller:
                 )
                 for j, rec in enumerate(meta["stack_records"])
             ])
+        for lid in meta.get("residual_learners", []):
+            learner = self._learners.get(lid)
+            if learner is not None:
+                learner.restore_residual(extras[f"residual__{lid}"])
         self.invalidate_wire_cache()
         self.journal.seek(int(meta.get("journal_cursor", 0)))
         return meta

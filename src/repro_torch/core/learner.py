@@ -8,8 +8,9 @@ synchronous call.
 
 The local step is ``torch.func.grad_and_value`` over the functional
 ``loss_fn(params, batch)`` — params are a plain tree of tensors, the same
-shape as the reference's pytrees — followed by the optimizer's tree update.
-The top-k error-feedback uplink is slice F of the port.
+shape as the reference's pytrees — followed by the optimizer's tree update.  On the top-k uplink the learner
+ships the sparsified delta against the model it received and keeps an f32
+error-feedback residual of everything it did not send.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.scheduler import TrainTask
 from repro_torch.device import resolve_device, wait_queued
+from repro_torch.kernels import topk as topk_kernels
 from repro_torch.optim import Optimizer, apply_fedprox
 from repro_torch.tree import tree_map
 
@@ -94,6 +96,11 @@ class Learner:
         self._manifest = None
         self._upload_pad: int | None = None
         self._channel = None
+        # Error-feedback residual of the sparse (topk) uplink: the f32
+        # (padded_params,) carry of everything sparsification left behind,
+        # on the learner's device.  None until the first sparse upload; rides
+        # checkpoints via export_residual/restore_residual.
+        self._residual: torch.Tensor | None = None
 
     # -- wire contract ------------------------------------------------------
     def accept_manifest(
@@ -140,12 +147,64 @@ class Learner:
             step = self._step_cache[0.0] = self._build_step(self._loss_fn)
         return step
 
+    def _topk_codec(self) -> Any | None:
+        """The channel's topk upload codec, or None when the uplink is dense."""
+        codec = getattr(self._channel, "upload_codec", None)
+        return codec if getattr(codec, "codec_id", None) == "topk" else None
+
+    def _upload_sparse(
+        self, trained: torch.Tensor, base: torch.Tensor, codec: Any, task: TrainTask
+    ) -> Any:
+        """Error-feedback sparse uplink: accumulate, send top-k, carry the rest.
+
+        ``acc = residual + (trained - base)`` is the full unsent update mass;
+        the codec ships its ``k`` largest-magnitude coordinates and the
+        residual keeps ``acc - sent``: exactly zero at sent coordinates for
+        f32 values, the quantization error for int8 values (the subtraction
+        uses the wire's values through ``unpack_coords``, so the carry sees
+        what the controller sees).
+        """
+        acc = trained - base
+        if self._residual is not None:
+            acc = self._residual + acc
+        upload = self._channel.upload(
+            acc, metadata={"learner_id": self.learner_id, "round_id": task.round_id},
+        )
+        idx, val = codec.unpack_coords(upload.payload, int(acc.shape[0]), acc.device)
+        self._residual = topk_kernels.ef_residual(acc, idx, val)
+        telemetry = getattr(self._channel, "telemetry", None)
+        if telemetry is not None:
+            telemetry.gauge("learner.residual_norm").set(
+                float(torch.linalg.vector_norm(self._residual)))
+        return upload
+
+    def export_residual(self) -> Any | None:
+        """Host copy of the error-feedback residual (checkpoint save); None
+        before the first sparse upload."""
+        if self._residual is None:
+            return None
+        return self._residual.cpu().numpy()
+
+    def restore_residual(self, buffer: Any | None) -> None:
+        """Reload a checkpointed error-feedback residual onto the learner's device."""
+        self._residual = (
+            None if buffer is None
+            else torch.as_tensor(buffer, dtype=torch.float32).to(self.device, copy=True)
+        )
+
     def fit(self, params: Any, task: TrainTask) -> LocalUpdate:
         """Run ``task.local_steps`` local optimization steps (paper T2-T3)."""
         params = tree_map(lambda p: p.to(self.device), params)
         step = self._make_step(task.prox_mu, params)
         opt_state = self._optimizer.init(params)
         loss = torch.zeros((), device=self.device)
+        topk_codec = self._topk_codec()
+        base = None
+        if topk_codec is not None and self._manifest is not None:
+            # The sparse uplink ships deltas: snapshot the received model at
+            # the wire width, so the update is against exactly what the
+            # controller broadcast.
+            base = packing.pack_numeric(params, pad_to=self._upload_pad)
         t0 = time.perf_counter()
         for _ in range(task.local_steps):
             batch = self._data_fn(task.batch_size)
@@ -166,10 +225,13 @@ class Learner:
             if self._channel is not None:
                 # Measured uplink: the row crosses the channel as a wire
                 # envelope; arrival reads exactly what the wire carried.
-                upload = self._channel.upload(
-                    buffer,
-                    metadata={"learner_id": self.learner_id, "round_id": task.round_id},
-                )
+                if base is not None:
+                    upload = self._upload_sparse(buffer, base, topk_codec, task)
+                else:
+                    upload = self._channel.upload(
+                        buffer,
+                        metadata={"learner_id": self.learner_id, "round_id": task.round_id},
+                    )
                 buffer = None
         return LocalUpdate(
             learner_id=self.learner_id,

@@ -12,12 +12,15 @@ The port of ``repro/core/store.py`` (f32 and int8 arenas, one device):
   single masked reduction straight over the arena.  With
   ``arena_dtype="int8"`` rows are resident as int8 groups plus ``(n, P/group)``
   f32 scales (~3.9x fewer bytes), written already quantized
-  (:meth:`ArenaStore.write_quantized`) or quantized on write.
+  (:meth:`ArenaStore.write_quantized`) or quantized on write; with
+  ``arena_dtype="topk"`` rows are ``(n, k)`` f32 values plus ``(n, k)`` int32
+  indices of top-k *deltas* (:meth:`ArenaStore.write_sparse`), 8 bytes per
+  kept coordinate instead of 4 per parameter.
 
 The reference's donated JAX row write becomes an in-place
 ``buffer[row, :n].copy_(buf)``: PyTorch tensors are mutable, so the arena is
-updated in place with no ``(n_max, P)`` re-allocation.  The sparse arena and
-the mesh-sharded arena are later slices of the port.
+updated in place with no ``(n_max, P)`` re-allocation.  The mesh-sharded
+arena is slice G of the port.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from repro_torch.core.packing import round_up
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as quant
+from repro_torch.kernels import topk as topk_kernels
 
 __all__ = ["ModelRecord", "ModelStore", "ArenaStore"]
 
@@ -203,7 +207,10 @@ class ArenaStore:
     the upload wire size matches); the padding columns are zero and never
     escape.  ``arena_dtype="int8"`` keeps ``buffer`` as int8 and adds
     ``scales (n_max, padded_params/qgroup)`` f32 (``qgroup`` defaults to
-    256).  More learners than rows grow the arena geometrically.  Host
+    256); ``arena_dtype="topk"`` makes ``buffer`` the ``(n_max, sparse_k)``
+    f32 values and adds ``indices (n_max, sparse_k)`` int32, ``sparse_k``
+    clamped to the padded row width as the wire codec clamps it.  More
+    learners than rows grow the arena geometrically.  Host
     mirrors (``_valid``, ``_weights_host``, ``_versions_host``) answer
     cohort questions without a device read.
 
@@ -222,16 +229,12 @@ class ArenaStore:
         telemetry: Telemetry | None = None,
         arena_dtype: str = "f32",
         qgroup: int | None = None,
+        sparse_k: int | None = None,
         device: str | torch.device | None = None,
     ):
         if num_params < 1:
             raise ValueError("num_params must be >= 1")
-        if arena_dtype == "topk":
-            raise NotImplementedError(
-                "arena_dtype='topk' is not ported yet: the top-k arena is slice F "
-                "of the port (ROADMAP.md)"
-            )
-        if arena_dtype not in ("f32", "int8"):
+        if arena_dtype not in ("f32", "int8", "topk"):
             raise ValueError(
                 f"arena_dtype must be 'f32', 'int8' or 'topk', got {arena_dtype!r}"
             )
@@ -257,13 +260,24 @@ class ArenaStore:
         else:
             self.qgroup = int(qgroup) if qgroup else None
             self.buffer_dtype = dtype
+        if arena_dtype == "topk":
+            if sparse_k is None:
+                raise ValueError("arena_dtype='topk' needs sparse_k")
+            self.sparse_k = max(1, min(int(sparse_k), self.padded_params))
+            self.buffer_dtype = torch.float32
+        else:
+            self.sparse_k = None
         n = max(1, int(n_max))
         self._rows: dict[str, int] = {}
         self._valid = np.zeros((n,), bool)
         self._weights_host = np.zeros((n,), np.float32)
         self._versions_host = np.zeros((n,), np.float32)
-        self.buffer = torch.zeros((n, self.padded_params), dtype=self.buffer_dtype,
-                                  device=self.device)
+        row_width = self.sparse_k if arena_dtype == "topk" else self.padded_params
+        self.buffer = torch.zeros((n, row_width), dtype=self.buffer_dtype, device=self.device)
+        self.indices = (
+            torch.zeros((n, row_width), dtype=torch.int32, device=self.device)
+            if arena_dtype == "topk" else None
+        )
         # Per-row per-group f32 dequantization scales of the int8 arena.
         self.scales = (
             torch.zeros((n, self.padded_params // self.qgroup), dtype=torch.float32,
@@ -309,6 +323,8 @@ class ArenaStore:
 
     def _grow(self, n_new: int) -> None:
         self.buffer = self._grown(self.buffer, n_new)
+        if self.indices is not None:
+            self.indices = self._grown(self.indices, n_new)
         if self.scales is not None:
             self.scales = self._grown(self.scales, n_new)
         self.weights = self._grown(self.weights, n_new)
@@ -349,8 +365,13 @@ class ArenaStore:
         An in-place ``copy_`` of O(P) device bytes, no allocation, no host
         copy.  On an int8 arena the row is quantized first (the kernel on the
         card) and lands through :meth:`write_quantized`; the padding columns
-        quantize to ``q = 0``, scale 1.0.  Returns the row.
+        quantize to ``q = 0``, scale 1.0.  A sparse arena has no dense rows
+        and refuses.  Returns the row.
         """
+        if self.arena_dtype == "topk":
+            raise ValueError(
+                "a sparse (arena_dtype='topk') arena has no dense rows; use write_sparse"
+            )
         buf = torch.as_tensor(buffer).reshape(-1).to(self.device, self.dtype)
         if buf.shape[0] not in (self.num_params, self.padded_params):
             raise ValueError(
@@ -421,6 +442,46 @@ class ArenaStore:
             self._c_bytes.add(int(q.nbytes) + int(scales.nbytes))
             return row
 
+    def write_sparse(
+        self, learner_id: str, indices: torch.Tensor, values: torch.Tensor,
+        weight: float, version: float = 0.0,
+    ) -> int:
+        """Land a sparse ``(indices, values)`` upload in its arena row.
+
+        The sparse arena's ingest hot path: a topk upload decoded by
+        ``Channel.recv_upload_sparse`` is copied in place into the row's
+        indices and values, with no densification; same metadata bookkeeping
+        as :meth:`write`.  Rows hold *deltas* against the model version
+        recorded per row.  Only on an ``arena_dtype="topk"`` arena.
+        """
+        if self.arena_dtype != "topk":
+            raise ValueError(
+                "write_sparse requires ArenaStore(arena_dtype='topk'); "
+                f"this arena is {self.arena_dtype!r}"
+            )
+        idx = torch.as_tensor(indices).reshape(-1)
+        val = torch.as_tensor(values).reshape(-1).to(torch.float32)
+        if idx.dtype != torch.int32:
+            raise ValueError(f"sparse indices must be int32, got {idx.dtype}")
+        if idx.shape[0] != self.sparse_k or val.shape[0] != self.sparse_k:
+            raise ValueError(
+                f"sparse row holds {idx.shape[0]} indices / {val.shape[0]} values; "
+                f"this arena wants ({self.sparse_k},) each"
+            )
+        with self.lock:
+            row = self._assign_row(learner_id)
+            self.indices[row].copy_(idx)
+            self.buffer[row].copy_(val)
+            self.weights[row] = float(weight)
+            self.versions[row] = float(version)
+            self.mask[row] = 1.0
+            self._valid[row] = True
+            self._weights_host[row] = weight
+            self._versions_host[row] = version
+            self._c_writes.add(1)
+            self._c_bytes.add(int(idx.nbytes) + int(val.nbytes))
+            return row
+
     def invalidate(self, learner_id: str) -> None:
         """Drop a learner's contribution (row is kept for reuse)."""
         with self.lock:
@@ -438,8 +499,8 @@ class ArenaStore:
     def row_view(self, learner_id: str) -> torch.Tensor:
         """Device view of one learner's un-padded packed buffer (always f32).
 
-        On an int8 arena the row is dequantized on the fly; the resident
-        state stays int8.
+        On an int8 arena the row is dequantized on the fly, on a sparse arena
+        densified; the resident state stays as it is.
         """
         with self.lock:
             row = self._rows[learner_id]
@@ -448,6 +509,10 @@ class ArenaStore:
             if self.arena_dtype == "int8":
                 x = (self.buffer[row].to(torch.float32).reshape(-1, self.qgroup)
                      * self.scales[row][:, None]).reshape(-1)
+                return x[: self.num_params]
+            if self.arena_dtype == "topk":
+                x = topk_kernels.densify(self.indices[row], self.buffer[row],
+                                         self.padded_params)
                 return x[: self.num_params]
             return self.buffer[row, : self.num_params]
 
@@ -511,12 +576,13 @@ class ArenaStore:
 
         Published as the ``store.arena.bytes_resident`` gauge after every
         capacity change: the int8 arena's ``(1 + 4/group)`` bytes per param
-        against 4 for f32.
+        against 4 for f32, the sparse arena's 8 per kept coordinate.
         """
         scales = self.scales.nbytes if self.scales is not None else 0
+        indices = self.indices.nbytes if self.indices is not None else 0
         return int(
-            self.buffer.nbytes + scales + self.weights.nbytes + self.versions.nbytes
-            + self.mask.nbytes
+            self.buffer.nbytes + scales + indices + self.weights.nbytes
+            + self.versions.nbytes + self.mask.nbytes
         )
 
     # -- checkpointing ------------------------------------------------------
@@ -526,9 +592,10 @@ class ArenaStore:
         Returns ``buffer`` (the full ``(n_max, padded_params)`` array, f32 or
         int8), the host ``weights``/``versions``/``valid`` mirrors and the
         ``rows`` learner→row map; an int8 arena adds ``scales`` (the
-        ``(n_max, padded_params/group)`` f32 array).  Both round trips
-        through ``.npz`` are bit-exact, so a restored arena aggregates
-        bit-identically.
+        ``(n_max, padded_params/group)`` f32 array), a sparse arena
+        ``indices`` (``buffer`` is then its ``(n_max, sparse_k)`` values).
+        Every round trip through ``.npz`` is bit-exact, so a restored arena
+        aggregates bit-identically.
         """
         with self.lock:
             state = {
@@ -540,6 +607,8 @@ class ArenaStore:
             }
             if self.scales is not None:
                 state["scales"] = self.scales.cpu().numpy()
+            if self.indices is not None:
+                state["indices"] = self.indices.cpu().numpy()
             return state
 
     def restore_state(
@@ -550,22 +619,33 @@ class ArenaStore:
         valid: np.ndarray,
         rows: dict[str, int],
         scales: np.ndarray | None = None,
+        indices: np.ndarray | None = None,
     ) -> None:
         """Reload a checkpointed arena state (inverse of :meth:`export_state`).
 
         The arena must have the same ``num_params`` and row alignment
         (``padded_params`` must match).  Capacity adapts: the restored state
         is padded (or the arena grown) to cover both the saved rows and any
-        already assigned.  An int8 arena needs ``scales``.
+        already assigned.  An int8 arena needs ``scales``; a sparse arena
+        needs ``indices`` and the same ``sparse_k``.
         """
         host_dt = np.int8 if self.arena_dtype == "int8" else np.float32
-        row_width = self.padded_params
+        row_width = self.sparse_k if self.arena_dtype == "topk" else self.padded_params
         buffer = np.asarray(buffer, host_dt)
         if buffer.ndim != 2 or buffer.shape[1] != row_width:
             raise ValueError(
                 f"checkpointed arena rows hold {buffer.shape[-1]} params, "
                 f"this arena holds {row_width}"
             )
+        if self.arena_dtype == "topk":
+            if indices is None:
+                raise ValueError("restoring a sparse arena needs the checkpointed indices")
+            indices = np.asarray(indices, np.int32)
+            if indices.shape != buffer.shape:
+                raise ValueError(
+                    f"checkpointed sparse indices have shape {indices.shape}, "
+                    f"values have {buffer.shape}"
+                )
         if self.arena_dtype == "int8":
             if scales is None:
                 raise ValueError(
@@ -590,6 +670,10 @@ class ArenaStore:
             self._versions_host[: len(versions)] = np.asarray(versions, np.float32)
             self._rows = {str(k): int(v) for k, v in rows.items()}
             self.buffer = torch.from_numpy(full).to(self.device)
+            if self.arena_dtype == "topk":
+                full_i = np.zeros((n, row_width), np.int32)
+                full_i[: indices.shape[0]] = indices
+                self.indices = torch.from_numpy(full_i).to(self.device)
             if self.arena_dtype == "int8":
                 full_s = np.zeros((n, self.padded_params // self.qgroup), np.float32)
                 full_s[: scales.shape[0]] = scales

@@ -1,6 +1,6 @@
 """Simulated transport layer with measured (de)serialization and byte counts.
 
-The port of the raw and int8 halves of ``repro/core/transport.py``.  The
+The port of ``repro/core/transport.py`` (one device).  The
 transport is an in-process channel that does the *real* serialization work,
 counts bytes and accounts virtual wire time from a bandwidth/latency model,
 without sleeping.  It is full duplex:
@@ -15,11 +15,15 @@ without sleeping.  It is full duplex:
   the ``int8`` codec (blockwise int8 values + f32 group scales, ~3.9x fewer
   bytes) into an :class:`UploadEnvelope`; the controller decodes it with one
   host-to-device transfer into a row ready for the arena, or, for the int8
-  arena, straight into quantized form (:meth:`Channel.recv_upload_quantized`).
+  arena, straight into quantized form (:meth:`Channel.recv_upload_quantized`);
+  the ``topk`` codec ships the ``k`` largest-magnitude coordinates of a
+  learner's *delta* as ``(int32 indices, f32 | int8-grouped values)``, which
+  the controller densifies or, for the sparse arena, lands as-is
+  (:meth:`Channel.recv_upload_sparse`).
 
 The wire stays host bytes (numpy) exactly as in the reference, so uplink and
-downlink byte counts equal the reference's for the same run.  The ``topk``
-codec is a later slice of the port.  All stats mutation is lock-guarded:
+downlink byte counts equal the reference's for the same run: on the card,
+only the wire bytes cross to the host.  All stats mutation is lock-guarded:
 learners upload concurrently from executor threads.
 """
 
@@ -39,11 +43,12 @@ from repro_torch.core.metrics import Telemetry
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as quant
+from repro_torch.kernels import topk as topk_kernels
 
 __all__ = [
     "ChannelStats", "Channel", "Envelope", "Broadcast",
-    "UploadEnvelope", "RawUploadCodec", "Int8UploadCodec", "UPLOAD_CODECS",
-    "get_upload_codec",
+    "UploadEnvelope", "RawUploadCodec", "Int8UploadCodec", "TopkUploadCodec",
+    "UPLOAD_CODECS", "get_upload_codec",
 ]
 
 
@@ -54,9 +59,6 @@ _STAT_FIELDS = (
     "upload_meta_bytes", "upload_serializations", "upload_serialize_s",
     "upload_deserialize_s", "upload_virtual_wire_s",
 )
-
-#: Codecs of the reference that later slices of the port bring.
-_LATER_CODECS = {"topk": "slice F"}
 
 
 class ChannelStats:
@@ -283,7 +285,153 @@ class Int8UploadCodec:
         return _decode_quant_resident(wire, n_q, n_scales, out_params, self.group)
 
 
-UPLOAD_CODECS = {"raw": RawUploadCodec, "int8": Int8UploadCodec}
+def _split_topk_wire(
+    wire: torch.Tensor, k_eff: int, n_scales: int, group: int, value_dtype: str
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device-side split of one topk payload into ``(idx int32, val f32, norm)``.
+
+    Bitcast the int32 index block, bitcast (f32 values) or bitcast and
+    dequantize (int8-grouped values) the value block, and take the sparse L2
+    norm: top-k indices are unique within one upload, so ``‖val‖₂`` is the
+    norm of the densified row, the scalar the admission screen reads.
+    """
+    idx = packing.bitcast(wire[: 4 * k_eff], torch.int32)
+    if value_dtype == "f32":
+        val = packing.bitcast(wire[4 * k_eff: 8 * k_eff], torch.float32)
+    else:
+        q = wire[4 * k_eff: 5 * k_eff].view(torch.int8)
+        scales = packing.bitcast(wire[5 * k_eff: 5 * k_eff + 4 * n_scales], torch.float32)
+        val = topk_kernels.dequantize_values(q, scales, group)
+    return idx, val, torch.linalg.vector_norm(val)
+
+
+def _topk_decode_norm(
+    wire: torch.Tensor, k_eff: int, n_scales: int, group: int, value_dtype: str,
+    num_elements: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split and densify into a ``(num_elements,)`` delta row, plus the norm.
+
+    The densify path for consumers that need a dense row (``sparse_mode=
+    "densify"``, the stack store, the robust rules); the direct sparse path
+    never calls this.
+    """
+    idx, val, norm = _split_topk_wire(wire, k_eff, n_scales, group, value_dtype)
+    return topk_kernels.densify(idx, val, num_elements), norm
+
+
+class TopkUploadCodec:
+    """Magnitude top-k upload codec (``kernels/topk``): the 10-100x regime.
+
+    Encodes the ``k`` largest-|x| coordinates of the learner's flat ``(P,)``
+    **delta** buffer as ``(indices:int32, values:f32|int8-grouped)``; at
+    ``k = P/64`` with f32 values the payload is ``P/8`` bytes, 32x below raw.
+    Lossy per upload; the learner's error-feedback residual
+    (``core/learner.py``) carries the unsent mass forward.  ``k`` clamps per
+    buffer to ``[1, P]`` and ``k_eff`` is re-derived from ``num_elements`` on
+    the decode side, so the envelope's ``codec_params`` stay constant.
+
+    This codec moves deltas, not parameters: the controller adds the
+    aggregated delta onto the global buffer at commit.  Selection runs on the
+    buffer's device; the wire is its bytes on the host, byte-identical to the
+    reference's.
+    """
+
+    codec_id = "topk"
+
+    def __init__(self, k: int = 64, value_dtype: str = "f32", group: int | None = None):
+        self.k = int(k)
+        if self.k < 1:
+            raise ValueError(f"topk codec needs k >= 1, got {k!r}")
+        if value_dtype not in topk_kernels.VALUE_DTYPES:
+            raise ValueError(
+                f"value_dtype must be one of {topk_kernels.VALUE_DTYPES}, "
+                f"got {value_dtype!r}"
+            )
+        self.value_dtype = str(value_dtype)
+        self.group = int(group or topk_kernels.DEFAULT_VALUE_GROUP)
+        if self.group < 1:
+            raise ValueError(f"topk codec needs group >= 1, got {group!r}")
+
+    def wire_params(self) -> dict:
+        """Codec parameters the receiver needs to derive the wire layout."""
+        return {"k": self.k, "value_dtype": self.value_dtype, "group": self.group}
+
+    def wire_nbytes(self, num_elements: int) -> int:
+        """Modeled wire payload size: int32 indices + (f32 | int8 + scale) values."""
+        return topk_kernels.wire_layout_topk(
+            int(num_elements), self.k, self.value_dtype, self.group)[2]
+
+    def encode(self, buffer: torch.Tensor) -> np.ndarray:
+        """Select top-k by magnitude and pack ``(indices, values)`` bytes.
+
+        The wire is assembled on the buffer's device and crosses to the host
+        in one transfer.
+        """
+        flat = torch.as_tensor(buffer).reshape(-1).to(torch.float32)
+        k_eff = topk_kernels.effective_k(int(flat.shape[0]), self.k)
+        idx, val = topk_kernels.topk_select(flat, k_eff)
+        if self.value_dtype == "f32":
+            parts = [idx, val]
+        else:
+            parts = [idx, *topk_kernels.quantize_values(val, self.group)]
+        wire = torch.cat([p.contiguous().view(torch.uint8) for p in parts])
+        return wire.cpu().numpy()
+
+    def _checked_layout(self, payload: np.ndarray, num_elements: int) -> tuple[int, int]:
+        """Validate payload size against the layout; return ``(k_eff, n_scales)``."""
+        k_eff, n_scales, nbytes = topk_kernels.wire_layout_topk(
+            int(num_elements), self.k, self.value_dtype, self.group)
+        if int(payload.size) != nbytes:
+            raise ValueError(
+                f"topk payload holds {int(payload.size)} bytes, expected "
+                f"{nbytes} for {num_elements} elements at k={self.k}"
+            )
+        return k_eff, n_scales
+
+    def _split(self, payload: np.ndarray, num_elements: int, device: torch.device):
+        k_eff, n_scales = self._checked_layout(payload, num_elements)
+        wire = packing.host_tensor(payload, device)
+        return _split_topk_wire(wire, k_eff, n_scales, self.group, self.value_dtype)
+
+    def unpack_coords(
+        self, payload: np.ndarray, num_elements: int, device: torch.device
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Wire bytes → ``(indices int32, values f32)`` on ``device``.
+
+        The learner's half of the error-feedback subtraction: values come back
+        dequantized, exactly what the controller will see, so ``residual -=
+        sent`` carries the quantization error too.
+        """
+        idx, val, _ = self._split(payload, num_elements, device)
+        return idx, val
+
+    def decode(self, payload: np.ndarray, num_elements: int,
+               device: torch.device) -> torch.Tensor:
+        """Densify a sparse payload into the f32 ``(P,)`` delta row on ``device``."""
+        return self.decode_with_norm(payload, num_elements, device)[0]
+
+    def decode_with_norm(
+        self, payload: np.ndarray, num_elements: int, device: torch.device
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Densify plus the L2 norm as an unread device scalar."""
+        k_eff, n_scales = self._checked_layout(payload, num_elements)
+        wire = packing.host_tensor(payload, device)
+        return _topk_decode_norm(wire, k_eff, n_scales, self.group, self.value_dtype,
+                                 int(num_elements))
+
+    def decode_sparse(
+        self, payload: np.ndarray, num_elements: int, device: torch.device
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Decode to sparse ``(indices, values, norm)`` — no densification.
+
+        The sparse arena's ingest half: one host-to-device transfer and a
+        device-side split; the norm (the sparse L2, equal to the dense row's)
+        stays an unread device scalar.
+        """
+        return self._split(payload, num_elements, device)
+
+
+UPLOAD_CODECS = {"raw": RawUploadCodec, "int8": Int8UploadCodec, "topk": TopkUploadCodec}
 
 
 def _codec_params(codec: Any) -> dict:
@@ -293,19 +441,11 @@ def _codec_params(codec: Any) -> dict:
 
 
 def get_upload_codec(spec: Any) -> Any:
-    """Resolve an upload codec: a registry id, a codec object, or ``None`` (raw).
-
-    ``"topk"`` is the reference's other codec; it raises
-    ``NotImplementedError`` until its slice of the port lands.
-    """
+    """Resolve an upload codec: a registry id (``"raw"``/``"int8"``/``"topk"``),
+    an already-constructed codec object, or ``None`` (raw)."""
     if spec is None:
         return RawUploadCodec()
     if isinstance(spec, str):
-        if spec in _LATER_CODECS:
-            raise NotImplementedError(
-                f"upload codec {spec!r} is not ported yet "
-                f"({_LATER_CODECS[spec]} of the port, ROADMAP.md)"
-            )
         try:
             return UPLOAD_CODECS[spec]()
         except KeyError:
@@ -604,3 +744,28 @@ class Channel:
         with self._stats_lock:
             self._c["upload_deserialize_s"].add(time.perf_counter() - t0)
         return q, scales, norm
+
+    def recv_upload_sparse(
+        self, envelope: UploadEnvelope
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Decode a topk upload in sparse form — densification never happens.
+
+        Returns ``(indices int32 (k,), values f32 (k,), norm)`` on
+        :attr:`device`: one host-to-device transfer and a device-side split,
+        the admission norm a device scalar (top-k indices are unique, so the
+        sparse L2 equals the dense row's norm).  Only for envelopes whose codec
+        declares ``decode_sparse``; accounted as upload deserialization work
+        like :meth:`recv_upload`.
+        """
+        c = self._resolve_upload_codec(envelope)
+        decode_s = getattr(c, "decode_sparse", None)
+        if decode_s is None:
+            raise ValueError(
+                f"codec {envelope.codec!r} cannot land sparse rows; "
+                "use recv_upload for dense decode"
+            )
+        t0 = time.perf_counter()
+        idx, val, norm = decode_s(envelope.payload, envelope.num_elements, self.device)
+        with self._stats_lock:
+            self._c["upload_deserialize_s"].add(time.perf_counter() - t0)
+        return idx, val, norm

@@ -1,7 +1,7 @@
 """Checkpoint and resume, in both packages: kill-and-resume bit-identity.
 
-The reference's ``tests/test_checkpoint_resume.py`` (all but its two top-k
-tests, which belong to the top-k slice), its engine test of a learner lost
+The reference's ``tests/test_checkpoint_resume.py`` (its two top-k tests
+among them), its engine test of a learner lost
 during the pre-checkpoint drain (``tests/test_engine.py``) and its
 checkpoint-file tests (``tests/test_infra.py``), each run as the cases of one
 parametrised test against the reference and against the port
@@ -9,7 +9,9 @@ parametrised test against the reference and against the port
 resumed on a fresh controller, with fresh learners, must end with a global
 model bit-identical to the uninterrupted run, within each package, across
 the protocol × store grid, the robust rules, admission and quarantine,
-FedBuff mid-buffer, the int8 arena and secure sync.  The harness supplies
+FedBuff mid-buffer, the int8 arena, secure sync and the top-k uplink (the
+learners' error-feedback residuals and the sparse arena's indices ride the
+checkpoint).  The harness supplies
 the reference's determinism conditions: constant batches, a fixed
 ``seconds_per_step``, async at one learner, FedBuff at one dispatch worker.
 
@@ -32,9 +34,11 @@ import torch
 import repro.core as J
 import repro_torch.core as T
 from repro.checkpoint import checkpoint as jckpt
+from repro.core import transport as jtransport
 from repro.optim import sgd as jsgd
 from repro_torch import optim as topt
 from repro_torch.checkpoint import checkpoint as tckpt
+from repro_torch.core import transport as ttransport
 from test_torch_protocols import _ScriptedInjector, _toy_learner
 
 
@@ -54,6 +58,7 @@ def pkg(request):
     ns.zeros = (lambda s: jnp.zeros(s, jnp.float32)) if side == "reference" else (
         lambda s: torch.zeros(s, dtype=torch.float32))
     ns.as_array = jnp.asarray if side == "reference" else torch.as_tensor
+    ns.TopkUploadCodec = (jtransport if side == "reference" else ttransport).TopkUploadCodec
     return ns
 
 
@@ -436,6 +441,69 @@ def test_int8_arena_kill_and_resume_bit_identical(pkg, codec, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
+_TOPK_GRID = [
+    ("sync", "direct", 3),
+    ("sync", "densify", 3),
+    ("async", "direct", 1),
+    ("buffered_async", "direct", 3),
+]
+
+
+@pytest.mark.parametrize("proto,sparse_mode,n", _TOPK_GRID,
+                         ids=[f"{p}-{m}" for p, m, _ in _TOPK_GRID])
+def test_topk_kill_and_resume_bit_identical(pkg, proto, sparse_mode, n, tmp_path):
+    """The learners' error-feedback residuals ride the checkpoint bit for
+    bit, the sparse arena checkpoints its indices beside its values, and the
+    resumed run is bit-identical to the uninterrupted one."""
+    kw = dict(upload_codec=pkg.TopkUploadCodec(k=2), sparse_mode=sparse_mode, **_extra(proto))
+    golden = _build(pkg, proto, "arena", n, **kw)
+    _run(golden, proto, 4)
+    want = _buf(golden)
+    golden.shutdown()
+
+    ckpt = str(tmp_path / "ckpt")
+    first = _build(pkg, proto, "arena", n, checkpoint_dir=ckpt, checkpoint_every=2, **kw)
+    _run(first, proto, 2)
+    res_saved = {lid: l.export_residual() for lid, l in first._learners.items()}
+    assert any(r is not None for r in res_saved.values())
+    if sparse_mode == "direct":
+        saved_idx, saved_val = np.array(first.arena.indices), np.array(first.arena.buffer)
+    first.shutdown()
+
+    resumed = _build(pkg, proto, "arena", n, **kw)
+    meta = resumed.restore(ckpt)
+    assert meta["sparse_mode"] == sparse_mode
+    for lid, learner in resumed._learners.items():
+        saved, got = res_saved[lid], learner.export_residual()
+        assert (saved is None) == (got is None)
+        if saved is not None:
+            np.testing.assert_array_equal(got, saved)
+    if sparse_mode == "direct":
+        np.testing.assert_array_equal(np.array(resumed.arena.indices), saved_idx)
+        np.testing.assert_array_equal(np.array(resumed.arena.buffer), saved_val)
+        assert str(resumed.arena.indices.dtype).endswith("int32")
+    _run(resumed, proto, 2)
+    got = _buf(resumed)
+    resumed.shutdown()
+    np.testing.assert_array_equal(got, want)  # bit-identical, not allclose
+
+
+def test_topk_restore_refuses_sparse_mode_mismatch(pkg, tmp_path):
+    """A direct-mode checkpoint resumed on a densify controller is a different
+    resident layout: refused, not coerced."""
+    ckpt = str(tmp_path / "ckpt")
+    first = _build(pkg, "sync", "arena", 3, checkpoint_dir=ckpt, checkpoint_every=2,
+                   upload_codec=pkg.TopkUploadCodec(k=2), sparse_mode="direct")
+    _run(first, "sync", 2)
+    first.shutdown()
+
+    wrong = _build(pkg, "sync", "arena", 3, upload_codec=pkg.TopkUploadCodec(k=2),
+                   sparse_mode="densify")
+    with pytest.raises(ValueError, match="sparse_mode"):
+        wrong.restore(ckpt)
+    wrong.shutdown()
+
+
 def test_lost_during_checkpoint_drain_rejoins_rotation(pkg, tmp_path):
     """An upload lost while the pre-checkpoint drain absorbs arrivals is
     re-dispatched after the checkpoint, and the checkpoint owes it."""
@@ -521,12 +589,13 @@ def test_restore_checkpoint_defaults_to_the_card(tmp_path):
     ("buffered_async", "arena", {"max_dispatch_workers": 1}),
     ("sync", "arena", {"arena_dtype": "int8", "upload_codec": "int8"}),
     ("sync", "arena", {"secure": True}),
-], ids=["sync-arena", "sync-stack", "fedbuff-arena", "int8-arena", "secure-arena"])
+    ("sync", "arena", {"upload_codec": "topk", "sparse_mode": "direct"}),
+], ids=["sync-arena", "sync-stack", "fedbuff-arena", "int8-arena", "secure-arena",
+        "topk-direct"])
 def test_checkpoint_holds_the_reference_keys_and_counters(proto, store_mode, kw, tmp_path):
     """The same federation, checkpointed at round 2 in both packages: the
     same ``.npz`` keys, the same meta keys and counters (every telemetry
-    counter but the wall-clock ones and the top-k slice's), models within
-    rtol 1e-4 / atol 1e-5."""
+    counter but the wall-clock ones), models within rtol 1e-4 / atol 1e-5."""
     files = {}
     for side in ("reference", "port"):
         ns = types.SimpleNamespace(
@@ -551,7 +620,8 @@ def test_checkpoint_holds_the_reference_keys_and_counters(proto, store_mode, kw,
     for key in ("step", "round_id", "model_version", "learner_versions", "aggregates_fired",
                 "deregistered_at", "late_carry", "journal_cursor", "protocol", "store_mode",
                 "secure", "aggregation_rule", "offenses", "quarantined", "arena_rows",
-                "arena_dtype", "pending_buffer", "pending_dispatch"):
+                "arena_dtype", "pending_buffer", "pending_dispatch", "sparse_mode",
+                "residual_learners"):
         assert t_meta.get(key) == j_meta.get(key), key
     assert t_meta["admission"]["accepted"] == j_meta["admission"]["accepted"]
     assert {k: p["observations"] for k, p in t_meta["profiles"].items()} == {
@@ -561,10 +631,7 @@ def test_checkpoint_holds_the_reference_keys_and_counters(proto, store_mode, kw,
              if isinstance(v, (int, float)) and not k.endswith(timers)}
     t_tel = {k: v for k, v in t_meta["telemetry"].items()
              if isinstance(v, (int, float)) and not k.endswith(timers)}
-    # the top-k counters belong to the top-k slice, which the port has not yet
-    assert set(j_tel) - set(t_tel) == {"controller.aggregations.sparse_scatter",
-                                       "engine.uploads.sparse_direct"}
-    assert t_tel == {k: v for k, v in j_tel.items() if k in t_tel}
+    assert t_tel == j_tel
     for key, want in j_arrays.items():
         got = t_arrays[key]
         assert got.shape == want.shape, key

@@ -30,9 +30,15 @@ equal the host's bit for bit with a negative and a positive NaN in live rows.
 Secure aggregation: ``encode_fixed`` and the masked sum on the card equal the
 host's bit for bit (NaN, ±inf, values past ±2^31 once scaled, sums that wrap),
 though the card's pads (Philox) are not the host's (mt19937); the pads' sign
-bit is set in about half the draws.  The f32 and int8 arenas'
+bit is set in about half the draws.  The f32, int8 and sparse arenas'
 ``export_state``/``restore_state`` round trip through ``.npz`` is
-byte-identical at full width.
+byte-identical at full width.  The top-k uplink: a full-width encode
+(10,174,464 values with planted ties, ±0 and NaN of both signs, k =
+158,976) gives the host's wire bytes for f32 and int8 values; selection,
+``densify`` and ``ef_residual`` equal the host's bits with ±NaN and ties
+(a NaN result compared as NaN: the card's arithmetic returns its own);
+the scatter-accumulate of a ``(32, 158,976)`` sparse arena gives the same
+bits on two calls and equals the host's to rtol 1e-6.
 """
 
 import numpy as np
@@ -43,6 +49,7 @@ from repro_torch.configs import housing_mlp
 from repro_torch.core import Driver, FederationEnv, TerminationCriteria
 from repro_torch.core import aggregation as tagg
 from repro_torch.core import secure as tsec
+from repro_torch.core import transport as ttransport
 from repro_torch.core.store import ArenaStore
 from repro_torch.kernels import fedavg as tfed
 from repro_torch.kernels import fused_agg as tfused
@@ -50,6 +57,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import robust as trobust
+from repro_torch.kernels import sparse_agg as tsparse
+from repro_torch.kernels import topk as ttopk
 from repro_torch.launch import train
 from repro_torch.models import mlp
 
@@ -643,3 +652,107 @@ def test_arena_checkpoint_round_trip_at_full_width(cuda_device, arena_dtype, tmp
     for name in ("weights", "versions", "mask"):
         assert torch.equal(getattr(dst, name), getattr(src, name)), name
     assert dst.valid_ids() == src.valid_ids() and "learner_007" not in dst
+
+
+# -- the top-k uplink -----------------------------------------------------------
+
+K_MAIN = P_MAIN // 64  # 158,976: the reference's k = P/64
+
+
+def _special_row(n: int, seed: int) -> np.ndarray:
+    """Seeded f32 row with planted magnitude ties, ±0, ±inf and a negative
+    (0xFFC00000) and a positive NaN."""
+    rng = np.random.default_rng(seed)
+    row = (rng.normal(size=n) * 3).astype(np.float32)
+    pick = rng.choice(n, size=4096, replace=False)
+    row[pick[:2000]] = np.float32(row[pick[0]]) * np.where(np.arange(2000) % 2, 1, -1)
+    row[pick[2000]], row[pick[2001]] = 0.0, -0.0
+    row[pick[2002]] = np.uint32(0xFFC00000).view(np.float32)
+    row[pick[2003]] = np.nan
+    row[pick[2004]], row[pick[2005]] = np.inf, -np.inf
+    row[pick[2006:]] = np.round(row[pick[2006:]] * 4) / 4  # more ties
+    return row
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "int8"])
+def test_topk_encode_at_full_width_equals_the_host(cuda_device, value_dtype):
+    row = torch.from_numpy(_special_row(P_MAIN, 0))
+    codec = ttransport.TopkUploadCodec(k=K_MAIN, value_dtype=value_dtype)
+    on_card = codec.encode(row.to(cuda_device))
+    on_host = codec.encode(row)
+    assert on_card.nbytes == codec.wire_nbytes(P_MAIN)
+    assert np.array_equal(on_card, on_host)
+
+
+@pytest.mark.parametrize("n,k", [(9, 6), (4096, 100), (1_000_003, 4096)])
+def test_topk_select_densify_residual_on_the_card(cuda_device, n, k):
+    row = _special_row(max(n, 8192), n)[:n] if n > 9 else np.array(
+        [1, -3, np.nan, 3, np.uint32(0xFFC00000).view(np.float32), 0, -0.0, 2, np.inf],
+        np.float32)
+    host = torch.from_numpy(row)
+    idx_h, val_h = ttopk.topk_select(host, k)
+    idx_c, val_c = ttopk.topk_select(host.to(cuda_device), k)
+    assert torch.equal(idx_c.cpu(), idx_h)
+    assert torch.equal(val_c.cpu().view(torch.int32), val_h.view(torch.int32))
+    if n == 9:
+        assert idx_h.tolist() == [2, 4, 8, 1, 3, 7]
+    # Arithmetic on a NaN returns the card's own NaN (0x7FFFFFFF), not the
+    # operand's payload: NaN results are compared as NaN, the rest by bits.
+    acc = torch.from_numpy((np.random.default_rng(n).normal(size=n) * 2).astype(np.float32))
+    for got, want in ((ttopk.densify(idx_c, val_c, n), ttopk.densify(idx_h, val_h, n)),
+                      (ttopk.ef_residual(acc.to(cuda_device), idx_c, val_c),
+                       ttopk.ef_residual(acc, idx_h, val_h))):
+        got = got.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        assert torch.equal(got[keep].view(torch.int32), want[keep].view(torch.int32))
+
+
+def _sparse_arena(n: int, k: int, width: int, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.stack([torch.randperm(width, generator=gen)[:k] for _ in range(n)])
+    val = torch.randn((n, k), generator=gen) * 2
+    w = torch.rand((n,), generator=gen) * 10 + 1
+    mask = torch.ones((n,))
+    mask[3] = 0.0
+    val[3] = float("nan")
+    return idx.to(torch.int32), val, w, mask
+
+
+def test_scatter_accumulate_is_bit_stable_on_the_card(cuda_device):
+    idx, val, w, mask = _sparse_arena(32, K_MAIN, P_MAIN, 0)
+    wn = w * mask / (w * mask).sum()
+    args = [t.to(cuda_device) for t in (idx, val, wn, mask)]
+    first = tsparse.scatter_accumulate(*args, P_MAIN)
+    second = tsparse.scatter_accumulate(*args, P_MAIN)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    host = tsparse.scatter_accumulate(idx, val, wn, mask, P_MAIN)
+    np.testing.assert_allclose(first.cpu().numpy(), host.numpy(), rtol=1e-6, atol=0)
+    assert torch.isfinite(first).all()
+
+
+def test_sparse_arena_checkpoint_round_trip_at_full_width(cuda_device, tmp_path):
+    n = 32
+    src = ArenaStore(num_params=10_174_081, n_max=n, arena_dtype="topk", sparse_k=K_MAIN,
+                     device=cuda_device)
+    idx, val, _, _ = _sparse_arena(n, K_MAIN, P_MAIN, 1)
+    for i in range(n):
+        src.write_sparse(f"learner_{i:03d}", idx[i].to(cuda_device), val[i].to(cuda_device),
+                         weight=float(i + 1), version=float(i % 3))
+    src.invalidate("learner_007")
+    state = src.export_state()
+    path = tmp_path / "arena.npz"
+    np.savez(path, **{k: v for k, v in state.items() if k != "rows"})
+    dst = ArenaStore(num_params=10_174_081, n_max=4, arena_dtype="topk", sparse_k=K_MAIN,
+                     device=cuda_device)
+    with np.load(path) as z:
+        dst.restore_state(rows=state["rows"], **{k: z[k] for k in z.files})
+    assert dst.indices.device.type == "cuda" and dst.indices.dtype == torch.int32
+    assert torch.equal(dst.indices, src.indices)
+    assert torch.equal(dst.buffer.view(torch.int32), src.buffer.view(torch.int32))
+    for name in ("weights", "versions", "mask"):
+        assert torch.equal(getattr(dst, name), getattr(src, name)), name
+    assert dst.valid_ids() == src.valid_ids() and "learner_007" not in dst
+    assert dst.resident_bytes() == src.resident_bytes() == n * K_MAIN * 8 + 3 * n * 4
+    for lid in ("learner_003", "learner_004"):  # row 3 holds NaN values
+        assert torch.equal(dst.row_view(lid).view(torch.int32), src.row_view(lid).view(torch.int32))

@@ -75,8 +75,12 @@ def test_arena_sequence_matches_reference():
 
 
 def test_arena_refuses_later_slices():
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tstore.ArenaStore(num_params=P, arena_dtype="topk", device="cpu")
+    # Slice F is ported: the sparse arena constructs, as in the reference.
+    ta = tstore.ArenaStore(num_params=P, arena_dtype="topk", sparse_k=48, device="cpu")
+    ja = jstore.ArenaStore(num_params=P, arena_dtype="topk", sparse_k=48)
+    assert ta.sparse_k == ja.sparse_k == 48
+    assert tuple(ta.indices.shape) == tuple(ja.indices.shape) == (8, 48)
+    assert ta.indices.dtype == torch.int32 and ta.resident_bytes() == ja.resident_bytes()
     with pytest.raises(NotImplementedError, match="slice G"):
         tstore.ArenaStore(num_params=P, mesh=object(), device="cpu")
 
@@ -116,8 +120,12 @@ def test_raw_channel_bytes_and_stats_match_reference():
 
 def test_later_codecs_refused():
     assert isinstance(ttransport.get_upload_codec("int8"), ttransport.Int8UploadCodec)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        ttransport.get_upload_codec("topk")
+    # Slice F is ported: "topk" resolves to the top-k codec, as in the reference.
+    codec = ttransport.get_upload_codec("topk")
+    assert isinstance(codec, ttransport.TopkUploadCodec)
+    assert codec.wire_params() == jtransport.get_upload_codec("topk").wire_params()
+    with pytest.raises(ValueError, match="unknown upload codec"):
+        ttransport.get_upload_codec("gzip")
 
 
 def _update(mod, lid, buffer, upload=None):
@@ -150,10 +158,12 @@ def test_admission_screen_rejects_nan_row_in_both():
 
 
 def test_controller_refuses_later_slices():
-    for kwargs, slice_name in (({"upload_codec": "topk"}, "slice F"),
-                               ({"arena_mesh": object()}, "slice G")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            TController(device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="slice G"):
+        TController(device="cpu", arena_mesh=object())
+    # Slice F is ported: the top-k codec and both sparse modes construct.
+    for mode in ("direct", "densify"):
+        ctrl = TController(device="cpu", upload_codec="topk", sparse_mode=mode)
+        assert ctrl._topk and ctrl.sparse_mode == mode
     # Slices D, B-2 and E are ported: the robust rules, checkpoints and
     # secure aggregation construct.
     for rule in ("median", "trimmed_mean"):
