@@ -42,6 +42,12 @@ nothing of the JAX package.  Phases, each printing its own lines:
              ``(32, 158,976)`` gives the same bits on two calls, the host's
              at rtol 1e-6 and an f64 oracle's at 1e-6; the selection, the
              encode and the scatter event-timed beside their bytes bounds;
+             then kernels 1, 3 and 5 at fedlm-100m's shapes (the
+             ``(32, 73,937,920)`` f32 and int8 arenas, a 73,937,920-wide
+             upload row): NaN dead rows and scales, two launches
+             bit-identical, the plain versions at 1e-5 and 2e-5 and
+             bit-identical for quantize, event-timed all live beside their
+             bounds with the device kernels a call;
 4. check   — small federations on the card agree with the same federations
              on the host: f32 (global buffer, rtol 1e-4 / atol 1e-5: the two
              devices sum in different orders across local steps), then the
@@ -77,10 +83,16 @@ nothing of the JAX package.  Phases, each printing its own lines:
              host difference printed only (a last-ulp difference in training
              can move a near-tie across the k boundary), and a sync-direct
              top-k federation killed and resumed bit-identical on the card;
-             and a 2-round federation with each local optimizer after SGD
-             (momentum, Adam, AdamW, Adafactor; rtol 1e-4 / atol 1e-5);
+             a 2-round federation with each local optimizer after SGD
+             (momentum, Adam, AdamW, Adafactor; rtol 1e-4 / atol 1e-5); and
+             the dense LM: 3-round federations of reduced qwen3-14b and
+             gemma3-4b in f32 (3 learners, 6 local ``sgd(0.1)`` steps, one
+             dispatch worker; global buffer and eval loss at rtol 1e-4 /
+             atol 1e-5) and fedlm-100m's full-width f32 forward and loss on
+             2 x 64 tokens, weights from one host seed (same bar);
 5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100,
-             fourteen legs and a diagnostic, each reached as users reach it, with
+             fourteen legs and a diagnostic, then two fedlm-100m legs, each
+             reached as users reach it, with
              its launch counts zeroed just before it and read just after:
              ``launch/train.main``
              (f32 arena, raw codec); the stack store through
@@ -132,7 +144,19 @@ nothing of the JAX package.  Phases, each printing its own lines:
              round's model change within 1e-6 of its f64 scatter of the
              arena's values); ``topk_densify_int8`` (int8 values of group 64
              densified into the int8 arena, 2 rounds: 804,816 bytes a
-             learner, kernel 3 on every upload and kernel 5 a round).  After the
+             learner, kernel 3 on every upload and kernel 5 a round);
+             ``lm_arena`` (``launch/train.main --arch fedlm-100m``, the
+             73,937,664-parameter dense decoder LM, 32 learners of 64
+             sequences of 64 tokens, 4 local steps of batch 16, 16
+             dispatch workers (32 learners in flight do not fit beside the
+             arena in 80 GB), 2 rounds:
+             295,751,680 upload bytes a learner into the (32, 73,937,920)
+             f32 arena, kernel 1 a round); ``lm_int8_arena`` (the same
+             federation through ``Driver``/``FederationEnv(upload_codec=
+             "int8", arena_dtype="int8")``, 2 rounds: 75,096,272 bytes a
+             learner, kernel 3 on every upload, kernel 5 a round, about
+             3.9x fewer resident bytes); each leg prints its peak device
+             memory.  After the
              arena leg, the ``naive`` line: the paper's baseline,
              ``core/naive.naive_aggregate`` (host float64, tensor by tensor,
              learner by learner) over the arena's 32 uploads, timed against
@@ -147,6 +171,8 @@ the repository's ``src/`` beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -179,7 +205,8 @@ GROUP = 256
 # full width.  ``deadline_32`` is a one-round diagnostic.
 LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 2, "int8_wire": 2, "trimmed_mean": 2,
               "median": 2, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 3,
-              "resume": 2, "secure": 2, "topk_direct": 2, "topk_densify_int8": 2}
+              "resume": 2, "secure": 2, "topk_direct": 2, "topk_densify_int8": 2,
+              "lm_arena": 2, "lm_int8_arena": 2}
 ASYNC_UPDATES = 32  # the async leg's total_updates (one per learner)
 FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
 # The deadline_faults leg's dispatch workers.  With 32 (the default, one per
@@ -196,6 +223,15 @@ INT8_ROW_BYTES = 10_333_440  # wire_layout(P_MAIN): 10,174,464 int8 + 39,744 f32
 K_MAIN = P_MAIN // 64  # 158,976: the reference's k = P/64 for the top-k uplink
 TOPK_F32_BYTES = 1_271_808  # wire_layout_topk(P_MAIN, K_MAIN): int32 index + f32 value
 TOPK_INT8_BYTES = 804_816  # int32 index + int8 value a coordinate, 2,484 scales of 64
+P_LM_PARAMS = 73_937_664  # fedlm-100m's params, 11 leaves
+P_LM = 73_937_920  # its arena row, padded to the arena's 1024 alignment
+LM_INT8_ROW_BYTES = 75_096_272  # wire_layout(P_LM): 73,940,992 int8 + 288,820 f32 scales
+LM_BATCH = 16  # the LM legs' local batch: 16 sequences of 64 tokens
+# The LM legs' dispatch workers.  32 fedlm-100m learners in flight (about
+# 2 GB each: the received model, its gradients, the update, the new model
+# and the activations) do not fit beside the 9.46 GB arena in 80 GB; 16
+# train the 32 learners in two waves.
+LM_WORKERS = 16
 TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
 BYZANTINE = dict(seed=7, adversarial_fraction=0.15, adversarial_fates=("scale", "sign_flip"))
 BYZ_COUNTERS = ("engine.faults.adversarial.scale", "engine.faults.adversarial.sign_flip",
@@ -263,6 +299,7 @@ def main() -> None:
     timing.update(time_int8_kernels(kq, kfed, kfu, dev, errs))
     errs["masked_trimmed_mean"] = check_trimmed_mean(krob, dev)
     timing.update(time_trimmed_mean(krob, dev, errs))
+    time_lm_kernels(kq, kfed, kfu, dev, errs, card)
     check_topk(dev, card)
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t_phase}),
           flush=True)
@@ -381,6 +418,7 @@ def main() -> None:
                                   optimizer=opt)
         checks[f"optimizer_{name}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer,
                                              1e-4, atol=1e-5, what=f"check optimizer {name}")
+    check_lm(train, dev, checks)
     print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     del d_gpu, d_cpu, c_gpu, c_cpu
@@ -449,6 +487,12 @@ def main() -> None:
         "topk_densify_int8": lambda: _controller(run_federation(
             train, dev, upload_codec=TopkUploadCodec(k=K_MAIN, value_dtype="int8"),
             sparse_mode="densify", arena_dtype="int8", **fed("topk_densify_int8"))),
+        "lm_arena": lambda: _controller(train.main([
+            "--arch", "fedlm-100m", "--learners", str(N_MAIN),
+            "--rounds", str(LEG_ROUNDS["lm_arena"]), "--local-steps", str(LOCAL_STEPS),
+            "--batch-size", str(LM_BATCH), "--dispatch-workers", str(LM_WORKERS)])),
+        "lm_int8_arena": lambda: _controller(run_lm_federation(
+            train, dev, LEG_ROUNDS["lm_int8_arena"], upload_codec="int8", arena_dtype="int8")),
     }
 
     def expected(leg: str, c, history) -> dict:
@@ -472,6 +516,8 @@ def main() -> None:
             "secure": {},  # the masked int32 sum is plain tensor arithmetic, as in the reference
             "topk_direct": {},  # selection and scatter are torch ops, as XLA ops in the reference
             "topk_densify_int8": {"quantize": N_MAIN * rounds, "masked_fedavg_q8": rounds},
+            "lm_arena": {"masked_fedavg": rounds},
+            "lm_int8_arena": {"quantize": N_MAIN * rounds, "masked_fedavg_q8": rounds},
         }[leg]
 
     launches = dict.fromkeys(counters, 0)
@@ -480,6 +526,7 @@ def main() -> None:
     for leg, run in legs.items():
         for fn in counters.values():
             fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t_phase = time.perf_counter()
         c, history = run()
         counts = {name: fn.launches for name, fn in counters.items()}
@@ -517,7 +564,8 @@ def main() -> None:
                 assert arena.buffer.dtype == torch.float32 and arena.indices.dtype == torch.int32
                 assert tuple(arena.buffer.shape) == tuple(arena.indices.shape) == (N_MAIN, K_MAIN)
             else:
-                assert tuple(arena.buffer.shape) == (N_MAIN, P_MAIN), arena.buffer.shape
+                width = P_LM if leg.startswith("lm_") else P_MAIN
+                assert tuple(arena.buffer.shape) == (N_MAIN, width), arena.buffer.shape
         if leg in ("arena", "secure"):
             assert c.arena.buffer.dtype == torch.float32
             assert up == N_MAIN * rounds * 4 * P_MAIN, up
@@ -563,6 +611,8 @@ def main() -> None:
                               "arena_over_topk_upload_bytes": 4 * P_MAIN / per_upload,
                               "arena_over_topk_bytes_resident": shrink,
                               "residual_norm": tel.value("learner.residual_norm")}), flush=True)
+        if leg.startswith("lm_"):
+            check_lm_leg(leg, c, resident)
         if leg == "semi_sync":
             check_semi_sync(c, first_step_s)
         if leg == "async":
@@ -606,8 +656,12 @@ def main() -> None:
                           "fused_q8": tel.value("controller.aggregations.fused_q8"),
                           "engine": _engine_counters(c),
                           "global_buffer": list(c.global_buffer.shape),
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
                           "seconds": time.perf_counter() - t_phase}), flush=True)
         del history, c
+        # The controller and its engine refer to each other: collect the
+        # cycle so the next leg starts without this leg's arena.
+        gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"phase": "main", "eval_loss_by_round": eval_loss}), flush=True)
 
@@ -1394,13 +1448,12 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
-def _timed(name: str, kern, plain, library, nbytes: float, flops: float, shape) -> dict:
+def _timed(name: str, kern, plain, library, nbytes: float, flops: float, shape,
+           samples: int = 20, inner: int = 10) -> dict:
     """Interleaved (plain, kernel, kernel, plain) so drift hits both alike."""
-    t_plain_a = _time_ms(plain)
-    t_kern_a = _time_ms(kern)
-    t_kern_b = _time_ms(kern)
-    t_plain_b = _time_ms(plain)
-    t_lib = _time_ms(library) if library is not None else None
+    t_plain_a, t_kern_a, t_kern_b, t_plain_b = (
+        _time_ms(f, samples, inner) for f in (plain, kern, kern, plain))
+    t_lib = _time_ms(library, samples, inner) if library is not None else None
     bound_ms, bound_by = _bound(nbytes, flops)
     print(json.dumps({"phase": "kernels", "timed": name, "shape": shape,
                       "kernel_ms": [t_kern_a, t_kern_b], "plain_ms": [t_plain_a, t_plain_b],
@@ -2033,6 +2086,218 @@ def check_topk_direct(c, rounds: list) -> None:
                           "coordinates_moved": int(np.count_nonzero(delta))}), flush=True)
         before = after
     rounds.clear()
+
+
+
+# ---------------------------------------------------------------------------
+# The dense decoder LM (slice H-1): fedlm-100m through the federation
+# ---------------------------------------------------------------------------
+
+
+def time_lm_kernels(kq, kfed, kfu, dev, errs: dict, card: str) -> None:
+    """Kernels 1, 3 and 5 at fedlm-100m's shapes: the (32, 73,937,920) f32
+    arena (9.46 GB, past 2^31 elements), one upload's (73,937,920,) row as the
+    int8 encoder quantizes it, and the (32, 73,937,920) int8 arena with its
+    (32, 288,820) scales.  Each is first held against its plain version with
+    every third row dead (NaN rows, NaN scales) and launched twice,
+    bit-identical; then timed with all 32 rows live, as the LM legs reduce,
+    beside its bound, with the device kernels a call.  The plain versions'
+    ``(N, P)`` temporaries (9.46 GB each) are freed between checks."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    n, p, groups = N_MAIN, P_LM, P_LM // GROUP
+    dead = torch.ones((n,), device=dev)
+    dead[1::3] = 0.0
+    live = torch.ones((n,), device=dev)
+    shape = [n, p]
+
+    rows = torch.randn((n, p), generator=gen, device=dev)
+    w = torch.rand((n,), generator=gen, device=dev) + 0.05
+    saved = rows[dead == 0].clone()
+    rows[dead == 0] = float("nan")
+    got = kfed.masked_fedavg_cuda(rows, w, dead)
+    _expect(_same_bits(got, kfed.masked_fedavg_cuda(rows, w, dead)),
+            "masked_fedavg at the LM arena: two launches differ")
+    err = _close(got, kfed.masked_fedavg_torch(rows, w, dead), 1e-5,
+                 what="masked_fedavg at the LM arena, NaN dead rows")
+    errs["masked_fedavg"] = max(errs["masked_fedavg"], err)
+    rows[dead == 0] = saved
+    del got, saved
+    torch.cuda.empty_cache()
+    w_hat = kfed.masked_normalize(w, live)
+    kern = lambda: kfed.masked_fedavg_cuda(rows, w, live)  # noqa: E731
+    errs["masked_fedavg"] = max(errs["masked_fedavg"], _close(
+        kern(), kfed.masked_fedavg_torch(rows, w, live), 1e-5, what="masked_fedavg LM timed"))
+    out["masked_fedavg"] = _timed(
+        "masked_fedavg", kern, lambda: kfed.masked_fedavg_torch(rows, w, live),
+        lambda: torch.mv(rows.T, w_hat), n * p * 4 + 4 * p + 8 * n, 2 * n * p, shape,
+        samples=10, inner=5)
+    out["masked_fedavg"]["max_abs_err"] = err
+    _one_kernel_a_call("masked_fedavg LM", _count_device_kernels("masked_fedavg LM", kern, shape),
+                       "fedavg_kernel", 10)
+    del rows, kern
+    torch.cuda.empty_cache()
+
+    xs = [torch.randn((p,), generator=gen, device=dev) * 3 for _ in range(2)]
+    for x in xs:
+        q, s = ops.quantize(x)
+        pq, ps = kq.quantize_torch(x, GROUP, q.shape[0])
+        _expect(torch.equal(q, pq) and _same_bits(s, ps), "quantize differs at the LM row")
+    n_padded, n_scales = q.shape[0], s.shape[0]
+    del q, s, pq, ps
+    turn = itertools.cycle(xs)
+    kern = lambda: ops.quantize(next(turn))  # noqa: E731
+    out["quantize"] = _timed("quantize", kern,
+                             lambda: kq.quantize_torch(next(turn), GROUP, n_padded), None,
+                             4 * p + n_padded + 4 * n_scales, 6 * p, [p], samples=10, inner=5)
+    out["quantize"]["max_abs_err"] = 0.0
+    _one_kernel_a_call("ops.quantize LM", _count_device_kernels("ops.quantize LM", kern, [p]),
+                       "quantize_kernel", 10)
+    del xs, turn, kern
+    torch.cuda.empty_cache()
+
+    aq, ascale, w = _q8_inputs(n, p, gen, dev)
+    saved = ascale[dead == 0].clone()
+    ascale[dead == 0] = float("nan")
+    got = kfu.masked_fedavg_q8_cuda(aq, ascale, w, dead)
+    _expect(_same_bits(got, kfu.masked_fedavg_q8_cuda(aq, ascale, w, dead)),
+            "masked_fedavg_q8 at the LM arena: two launches differ")
+    err = _close(got, kfu.masked_fedavg_q8_torch(aq, ascale, w, dead), 2e-5,
+                 what="masked_fedavg_q8 at the LM arena, NaN dead scales")
+    errs["masked_fedavg_q8"] = max(errs["masked_fedavg_q8"], err)
+    ascale[dead == 0] = saved
+    del got, saved
+    torch.cuda.empty_cache()
+    kern = lambda: kfu.masked_fedavg_q8_cuda(aq, ascale, w, live)  # noqa: E731
+    plain = lambda: kfu.masked_fedavg_q8_torch(aq, ascale, w, live)  # noqa: E731
+    errs["masked_fedavg_q8"] = max(errs["masked_fedavg_q8"], _close(
+        kern(), plain(), 2e-5, what="masked_fedavg_q8 LM timed"))
+    out["masked_fedavg_q8"] = _timed(
+        "masked_fedavg_q8", kern, plain, None,
+        n * p + 4 * n * groups + 4 * p + 8 * n, 3 * n * p, shape, samples=10, inner=5)
+    out["masked_fedavg_q8"]["max_abs_err"] = err
+    _one_kernel_a_call("masked_fedavg_q8 LM",
+                       _count_device_kernels("masked_fedavg_q8 LM", kern, shape), "fedavg_kernel", 10)
+    del aq, ascale, kern, plain
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "kernels", "lm_shape": out, "card": card}), flush=True)
+
+
+def lm_sync_controller(train, dev, cfg, rounds: int, lr: float = 0.1):
+    """The reference's LM federation test at the f32 variant: 3 learners of 32
+    sequences of 24 tokens, sync rounds of 6 local SGD steps of batch 16, one
+    dispatch worker, the initial model from host seed 0.  At ``sgd(0.1)``
+    local training is stable (at 0.5 it is chaotic, and one ulp grows past
+    any bar).  Returns ``(controller, history)``; the controller is shut down."""
+    from repro_torch import optim
+    from repro_torch.core import Controller, SyncProtocol
+    from repro_torch.models import transformer
+
+    fleet = train.build_lm_learners(cfg, 3, 0, n_seq_per_learner=32, seq_len=24,
+                                    optimizer=optim.sgd(lr), device=dev)
+    ctrl = Controller(protocol=SyncProtocol(6, 16, lr), arena_n_max=3, max_dispatch_workers=1,
+                      device=dev)
+    ctrl.set_initial_model(transformer.init_params(torch.Generator().manual_seed(0), cfg, dev))
+    for learner in fleet:
+        ctrl.register_learner(learner)
+    try:
+        history = ctrl.engine.run(rounds=rounds)
+    finally:
+        ctrl.shutdown()
+    return ctrl, history
+
+
+def check_lm(train, dev, checks: dict) -> None:
+    """The dense LM on the card against the host: 3-round federations of
+    reduced qwen3-14b and gemma3-4b (sliding windows, tied embeddings,
+    qk-norm, the sqrt(d) embedding scale) in the f32 variant, global buffer
+    and eval loss at rtol 1e-4 / atol 1e-5; and fedlm-100m's full-width f32
+    forward of 2 x 64 tokens on weights from one host seed, logits and loss at
+    the same bar."""
+    from repro_torch.configs import fedlm_100m, get_reduced
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    host = torch.device("cpu")
+    for arch in ("qwen3-14b", "gemma3-4b"):
+        cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+        c_gpu, h_gpu = lm_sync_controller(train, dev, cfg, rounds=3)
+        c_cpu, h_cpu = lm_sync_controller(train, host, cfg, rounds=3)
+        checks[f"lm_{arch}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer, 1e-4,
+                                      atol=1e-5, what=f"check lm {arch}")
+        loss_gpu = [h.metrics["eval_loss"] for h in h_gpu]
+        loss_cpu = [h.metrics["eval_loss"] for h in h_cpu]
+        _close(torch.tensor(loss_gpu), torch.tensor(loss_cpu), 1e-4, atol=1e-5,
+               what=f"check lm {arch} eval loss")
+        _expect(loss_gpu[-1] < loss_gpu[0], f"check lm {arch}: eval loss {loss_gpu} did not fall")
+        print(json.dumps({"phase": "check", "lm": arch, "eval_loss_card": loss_gpu,
+                          "eval_loss_host": loss_cpu,
+                          "params": int(c_gpu.global_buffer.shape[0])}), flush=True)
+    cfg = dataclasses.replace(fedlm_100m.config(), dtype=torch.float32)
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg, host)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 64)))
+             for k in ("tokens", "labels")}
+    with torch.no_grad():
+        want = transformer.forward(params, batch["tokens"], cfg)[0]
+        want_loss = transformer.lm_loss(params, batch, cfg)
+        params = tree_map(lambda t: t.to(dev), params)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        got = transformer.forward(params, batch["tokens"], cfg)[0]
+        got_loss = transformer.lm_loss(params, batch, cfg)
+    V = cfg.vocab_size
+    checks["lm_fedlm_100m_forward"] = _close(got[..., :V].cpu(), want[..., :V], 1e-4, atol=1e-5,
+                                             what="check fedlm-100m forward")
+    _close(got_loss.cpu().reshape(1), want_loss.reshape(1), 1e-4, atol=1e-5,
+           what="check fedlm-100m loss")
+    print(json.dumps({"phase": "check", "lm": "fedlm-100m forward", "logits": list(got.shape),
+                      "loss_card": float(got_loss), "loss_host": float(want_loss)}), flush=True)
+    del params, got
+
+
+def run_lm_federation(train, dev, rounds: int, **env):
+    """fedlm-100m as ``launch/train.main`` builds it (32 learners of 64
+    sequences of 64 tokens, 4 local SGD steps of 16 at lr 0.05, seed 0,
+    ``LM_WORKERS`` training at once), through ``Driver``/``FederationEnv(**env)``."""
+    from repro_torch import optim
+    from repro_torch.configs import fedlm_100m
+    from repro_torch.core import Driver, FederationEnv, TerminationCriteria
+    from repro_torch.models import transformer
+
+    cfg = fedlm_100m.config()
+    fleet = train.build_lm_learners(cfg, N_MAIN, 0, optimizer=optim.sgd(LR), device=dev)
+    initial = transformer.init_params(torch.Generator().manual_seed(0), cfg, dev)
+    driver = Driver(FederationEnv(local_steps=LOCAL_STEPS, batch_size=LM_BATCH,
+                                  learning_rate=LR,
+                                  termination=TerminationCriteria(max_rounds=rounds),
+                                  max_dispatch_workers=LM_WORKERS, device=dev, **env))
+    driver.initialize(initial, fleet)
+    return driver, driver.run()
+
+
+def check_lm_leg(leg: str, c, resident: dict) -> None:
+    """The LM legs' wire and arena: 32 uploads a round of the padded f32 row
+    (295,751,680 B) or its int8 wire (75,096,272 B), every int8 upload landed
+    directly and one fused reduce a round, the int8 arena about 3.9x smaller."""
+    tel = c.telemetry
+    up = c.channel.stats.upload_bytes
+    uploads = tel.value("channel.upload_messages")
+    assert uploads == N_MAIN * LEG_ROUNDS[leg], uploads
+    int8 = leg == "lm_int8_arena"
+    assert up == uploads * (LM_INT8_ROW_BYTES if int8 else 4 * P_LM), up
+    assert c.arena.buffer.dtype == (torch.int8 if int8 else torch.float32)
+    assert tel.value("engine.uploads.quantized_direct") == (uploads if int8 else 0)
+    assert tel.value("controller.aggregations.fused_q8") == (LEG_ROUNDS[leg] if int8 else 0)
+    line = {"phase": f"main.{leg}", "upload_bytes_per_upload": up // uploads,
+            "bytes_resident": resident[leg], "dispatch_workers": c.engine._executor._max_workers,
+            "params": P_LM_PARAMS}
+    if int8:
+        shrink = resident["lm_arena"] / resident[leg]
+        assert 3.8 < shrink < 4.0, shrink
+        line["lm_arena_over_int8_bytes_resident"] = shrink
+    print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

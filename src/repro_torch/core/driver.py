@@ -56,7 +56,10 @@ class FederationEnv:
     Workflow knobs live here as flat fields; the machinery knobs are one
     validated :class:`~repro_torch.core.config.FederationConfig` at
     :attr:`config`, with the flat machinery fields as aliases (as in the
-    reference).  ``device`` is where the federation runs.
+    reference).  ``device`` is where the federation runs;
+    ``max_dispatch_workers`` bounds the learners training at once (the
+    controller's 32 by default; a model whose learners do not all fit in
+    device memory at once needs fewer).
     """
 
     protocol: str = "sync"  # sync|semi_sync|async|buffered_async|deadline|reputation
@@ -97,6 +100,7 @@ class FederationEnv:
     termination: TerminationCriteria = TerminationCriteria()
     config: FederationConfig | None = None
     device: str | torch.device | None = None
+    max_dispatch_workers: int = 32
 
     def __post_init__(self) -> None:
         """Reconcile the typed config with the flat alias fields."""
@@ -186,6 +190,7 @@ class Driver:
             journal_capacity=cfg.journal_capacity,
             checkpoint_every=cfg.checkpoint_every,
             checkpoint_dir=cfg.checkpoint_dir,
+            max_dispatch_workers=env.max_dispatch_workers,
             device=self.device,
         )
         self._learners: list[Learner] = []

@@ -244,6 +244,19 @@ def reduce_eval(reports: list[EvalReport]) -> dict:
     }
 
 
+def _without_model(event: Any) -> Any:
+    """``event`` as the event log keeps it: an ``UploadArrived`` drops its
+    update's params, packed row and wire payload (ingest has read them);
+    the learner, round, metrics and envelope metadata stay."""
+    if not isinstance(event, UploadArrived) or event.update is None:
+        return event
+    up = event.update.upload
+    update = dataclasses.replace(
+        event.update, params=None, buffer=None,
+        upload=None if up is None else dataclasses.replace(up, payload=None))
+    return dataclasses.replace(event, update=update)
+
+
 class RoundEngine:
     """One arrival-driven loop driving every federation workflow.
 
@@ -251,8 +264,10 @@ class RoundEngine:
     cohorts, reputation); ``run(total_updates=N)`` the continuous ones
     (async, FedBuff).  :meth:`post` is the only entry point for worker
     threads; every event is processed on the thread inside :meth:`run`.
-    ``event_log`` (bounded) keeps the typed events in processing order;
-    ``journal`` their serialized form.
+    ``event_log`` (bounded) keeps the typed events in processing order, an
+    arrival without its model (trained params, packed row, wire payload:
+    4,096 fedlm-100m arrivals would pin 1.2 TB); ``journal`` their
+    serialized form.
     """
 
     def __init__(
@@ -303,7 +318,7 @@ class RoundEngine:
         self._events.put(event)
 
     def _log(self, event: Any, **context: Any) -> None:
-        self.event_log.append(event)
+        self.event_log.append(_without_model(event))
         self.journal.record(event, **context)
 
     # -- dispatch -----------------------------------------------------------

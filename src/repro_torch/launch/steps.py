@@ -1,0 +1,43 @@
+"""Step-function builders: train_step and prefill_step per config.
+
+The port of ``repro/launch/steps.py`` (``make_serve_step`` is slice H-4).
+Both steps are functions of ``(params, ...)`` over the functional model of
+``models/transformer.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import Optimizer
+
+__all__ = ["make_train_step", "make_prefill_step"]
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
+    """``(params, opt_state, batch) -> (params, opt_state, loss)``: one optimizer
+    step on the gradient of ``lm_loss``."""
+    grad_and_value = torch.func.grad_and_value(
+        lambda params, batch: transformer.lm_loss(params, batch, cfg))
+
+    def train_step(params, opt_state, batch):
+        grads, loss = grad_and_value(params, batch)
+        params, opt_state = optimizer.apply(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``(params, batch) -> next_tokens``: the full forward, then the greedy
+    next token of every sequence as int32 (``(B,)``)."""
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, _, _ = transformer.forward(
+                params, batch["tokens"], cfg, prefix_embeds=batch.get("prefix_embeds"))
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+
+    return prefill_step

@@ -1,1 +1,1 @@
-"""Models of the port (the housing MLP in this slice; the zoo is slice H)."""
+"""Models of the port: the housing MLP and the dense decoder family."""

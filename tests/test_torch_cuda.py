@@ -38,14 +38,21 @@ byte-identical at full width.  The top-k uplink: a full-width encode
 ``densify`` and ``ef_residual`` equal the host's bits with ±NaN and ties
 (a NaN result compared as NaN: the card's arithmetic returns its own);
 the scatter-accumulate of a ``(32, 158,976)`` sparse arena gives the same
-bits on two calls and equals the host's to rtol 1e-6.
+bits on two calls and equals the host's to rtol 1e-6.  The dense LM:
+kernels 1 and 5 at fedlm-100m's ``(32, 73,937,920)`` arenas (9.46 GB f32,
+past 2^31 elements; 2.37 GB int8) with NaN dead rows against their plain
+versions (1e-5, 2e-5), and fedlm-100m's full-width f32 forward and loss on
+the card against the host at rtol 1e-4 / atol 1e-5.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import housing_mlp
+from repro_torch.configs import fedlm_100m, housing_mlp
 from repro_torch.core import Driver, FederationEnv, TerminationCriteria
 from repro_torch.core import aggregation as tagg
 from repro_torch.core import secure as tsec
@@ -59,14 +66,17 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import robust as trobust
 from repro_torch.kernels import sparse_agg as tsparse
 from repro_torch.kernels import topk as ttopk
+from repro_torch.device import full_f32
 from repro_torch.launch import train
-from repro_torch.models import mlp
+from repro_torch.models import mlp, transformer
+from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
 _TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 P_MAIN = 10_174_464  # housing-mlp-10m's arena row
 P_STACK = 10_174_081  # the stack leg's unpadded rows, not 16-byte aligned
+P_LM = 73_937_920  # fedlm-100m's arena row: 73,937,664 params padded to 1024
 
 
 @pytest.fixture
@@ -756,3 +766,56 @@ def test_sparse_arena_checkpoint_round_trip_at_full_width(cuda_device, tmp_path)
     assert dst.resident_bytes() == src.resident_bytes() == n * K_MAIN * 8 + 3 * n * 4
     for lid in ("learner_003", "learner_004"):  # row 3 holds NaN values
         assert torch.equal(dst.row_view(lid).view(torch.int32), src.row_view(lid).view(torch.int32))
+
+
+def _lm_mask(device):
+    m = torch.ones((32,), device=device)
+    m[1::3] = 0.0
+    return m
+
+
+def test_fedavg_kernel_at_the_lm_arena(cuda_device):
+    """fedlm-100m's (32, 73,937,920) f32 arena: 2.37e9 elements, past 2^31,
+    every third row dead and NaN; two launches bit-identical."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    rows = torch.randn((32, P_LM), generator=gen, device=cuda_device)
+    w = torch.rand((32,), generator=gen, device=cuda_device) + 0.05
+    m = _lm_mask(cuda_device)
+    rows[m == 0] = float("nan")
+    got = tops.masked_fedavg(rows, w, m)
+    again = tops.masked_fedavg(rows, w, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = tfed.masked_fedavg_torch(rows, w, m)
+    _close(got.cpu(), want.cpu(), 1e-5)
+
+
+def test_fused_q8_kernel_at_the_lm_arena(cuda_device):
+    """fedlm-100m's (32, 73,937,920) int8 arena and (32, 288,820) scales, every
+    third row dead, NaN scales and saturated values in the dead rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    q = torch.randint(-127, 128, (32, P_LM), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    s = torch.rand((32, P_LM // 256), generator=gen, device=cuda_device) * 5 + 0.01
+    w = torch.rand((32,), generator=gen, device=cuda_device) * 49 + 1
+    _q8_agrees(q, s, w, _lm_mask(cuda_device), 256, "masked_fedavg_q8 at the LM arena")
+
+
+def test_fedlm_100m_forward_on_the_card_matches_the_host(cuda_device):
+    full_f32()
+    cfg = dataclasses.replace(fedlm_100m.config(), dtype=torch.float32)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 64)))
+             for k in ("tokens", "labels")}
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    card_batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    with torch.no_grad():
+        want = transformer.forward(host, batch["tokens"], cfg)[0]
+        got = transformer.forward(card, card_batch["tokens"], cfg)[0]
+        want_loss = transformer.lm_loss(host, batch, cfg)
+        got_loss = transformer.lm_loss(card, card_batch, cfg)
+    V = cfg.vocab_size
+    np.testing.assert_allclose(got[..., :V].cpu().numpy(), want[..., :V].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-4, atol=1e-5)

@@ -35,7 +35,8 @@ assert not leaked, leaked
 assert len(names) >= 20, names
 assert {"repro_torch.core.faults", "repro_torch.kernels.robust", "repro_torch.core.secure",
         "repro_torch.core.naive", "repro_torch.checkpoint.checkpoint",
-        "repro_torch.optim.optimizers"} <= set(names), names
+        "repro_torch.optim.optimizers", "repro_torch.models.transformer",
+        "repro_torch.launch.steps"} <= set(names), names
 """
 
 
