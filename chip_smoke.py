@@ -47,7 +47,11 @@ nothing of the JAX package.  Phases, each printing its own lines:
              upload row): NaN dead rows and scales, two launches
              bit-identical, the plain versions at 1e-5 and 2e-5 and
              bit-identical for quantize, event-timed all live beside their
-             bounds with the device kernels a call;
+             bounds with the device kernels a call; then kernel 1 at the
+             one-layer qwen2-moe-a2.7b's ``(4, 1,228,025,856)`` f32 arena
+             (19.65 GB): a NaN dead row, two launches bit-identical, the
+             plain version at 1e-5, event-timed beside its bound and
+             ``torch.mv``;
 4. check   — small federations on the card agree with the same federations
              on the host: f32 (global buffer, rtol 1e-4 / atol 1e-5: the two
              devices sum in different orders across local steps), then the
@@ -89,7 +93,13 @@ nothing of the JAX package.  Phases, each printing its own lines:
              gemma3-4b in f32 (3 learners, 6 local ``sgd(0.1)`` steps, one
              dispatch worker; global buffer and eval loss at rtol 1e-4 /
              atol 1e-5) and fedlm-100m's full-width f32 forward and loss on
-             2 x 64 tokens, weights from one host seed (same bar);
+             2 x 64 tokens, weights from one host seed (same bar); then the
+             other families: the reduced qwen2-moe-a2.7b, deepseek-v3-671b
+             (MLA, MTP), mamba2-780m, zamba2-1.2b and whisper-large-v3
+             forward and loss on 2 x 64 tokens (same bar), and a 3-round
+             reduced qwen2-moe federation (its first round at the same bar,
+             the eval loss within 1% and falling: past it a near-tied route
+             may take another expert on one device);
 5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100,
              fourteen legs and a diagnostic, then two fedlm-100m legs, each
              reached as users reach it, with
@@ -155,7 +165,20 @@ nothing of the JAX package.  Phases, each printing its own lines:
              federation through ``Driver``/``FederationEnv(upload_codec=
              "int8", arena_dtype="int8")``, 2 rounds: 75,096,272 bytes a
              learner, kernel 3 on every upload, kernel 5 a round, about
-             3.9x fewer resident bytes); each leg prints its peak device
+             3.9x fewer resident bytes); ``lm_moe_arena`` (qwen2-moe-a2.7b
+             at its published widths, its depth cut from 24 layers to 1:
+             1,228,025,856 params, 60 routed experts padded to 64 and 4
+             shared; 4 learners of 64 sequences of 64 tokens as
+             ``build_lm_learners`` builds them, 4 local steps of 16, one in
+             flight, through a ``Controller`` with a 4-row arena, 2 rounds:
+             4,912,103,424 upload bytes a learner, kernel 1 a round on the
+             (4, 1,228,025,856) arena, a falling eval loss from about ln
+             151,936); each leg prints its peak device memory.  Then the
+             ``families`` line: one full-width ``make_train_step`` on the
+             card for deepseek-v3-671b (one dense layer and its MTP module),
+             mamba2-780m, zamba2-1.2b and whisper-large-v3 (batch 2 with
+             1500 frames), each with its params against the reference's
+             count, a finite loss and gradients, its step seconds and peak
              memory.  After the
              arena leg, the ``naive`` line: the paper's baseline,
              ``core/naive.naive_aggregate`` (host float64, tensor by tensor,
@@ -206,7 +229,7 @@ GROUP = 256
 LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 2, "int8_wire": 2, "trimmed_mean": 2,
               "median": 2, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 3,
               "resume": 2, "secure": 2, "topk_direct": 2, "topk_densify_int8": 2,
-              "lm_arena": 2, "lm_int8_arena": 2}
+              "lm_arena": 2, "lm_int8_arena": 2, "lm_moe_arena": 2}
 ASYNC_UPDATES = 32  # the async leg's total_updates (one per learner)
 FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
 # The deadline_faults leg's dispatch workers.  With 32 (the default, one per
@@ -232,6 +255,19 @@ LM_BATCH = 16  # the LM legs' local batch: 16 sequences of 64 tokens
 # and the activations) do not fit beside the 9.46 GB arena in 80 GB; 16
 # train the 32 learners in two waves.
 LM_WORKERS = 16
+# The lm_moe_arena leg: qwen2-moe-a2.7b at its published widths, its depth
+# cut from 24 layers to 1 (the full model, 15.1e9 params, is 60.6 GB in one
+# f32 copy: no federation of it fits on one 80 GB card).  Its row is already
+# a multiple of 1024.  One learner in flight (about 20 GB each beside the
+# 19.65 GB arena and the global model).
+P_MOE = 1_228_025_856
+N_MOE = 4
+MOE_WORKERS = 1
+# The families line: each new family's full-width params.  deepseek-v3 at
+# one layer (dense: first_k_dense is 3) with its MTP module; a routed layer
+# at full width is 11.3e9 params, which one card cannot train.
+FAMILY_PARAMS = {"deepseek-v3-671b": 3_123_113_984, "mamba2-780m": 780_382_464,
+                 "zamba2-1.2b": 1_016_967_168, "whisper-large-v3": 1_603_507_200}
 TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
 BYZANTINE = dict(seed=7, adversarial_fraction=0.15, adversarial_fates=("scale", "sign_flip"))
 BYZ_COUNTERS = ("engine.faults.adversarial.scale", "engine.faults.adversarial.sign_flip",
@@ -300,6 +336,7 @@ def main() -> None:
     errs["masked_trimmed_mean"] = check_trimmed_mean(krob, dev)
     timing.update(time_trimmed_mean(krob, dev, errs))
     time_lm_kernels(kq, kfed, kfu, dev, errs, card)
+    time_moe_kernel(kfed, dev, errs, card)
     check_topk(dev, card)
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t_phase}),
           flush=True)
@@ -419,6 +456,7 @@ def main() -> None:
         checks[f"optimizer_{name}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer,
                                              1e-4, atol=1e-5, what=f"check optimizer {name}")
     check_lm(train, dev, checks)
+    check_families(train, dev, checks)
     print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     del d_gpu, d_cpu, c_gpu, c_cpu
@@ -493,6 +531,7 @@ def main() -> None:
             "--batch-size", str(LM_BATCH), "--dispatch-workers", str(LM_WORKERS)])),
         "lm_int8_arena": lambda: _controller(run_lm_federation(
             train, dev, LEG_ROUNDS["lm_int8_arena"], upload_codec="int8", arena_dtype="int8")),
+        "lm_moe_arena": lambda: run_moe_federation(train, dev, LEG_ROUNDS["lm_moe_arena"]),
     }
 
     def expected(leg: str, c, history) -> dict:
@@ -518,6 +557,7 @@ def main() -> None:
             "topk_densify_int8": {"quantize": N_MAIN * rounds, "masked_fedavg_q8": rounds},
             "lm_arena": {"masked_fedavg": rounds},
             "lm_int8_arena": {"quantize": N_MAIN * rounds, "masked_fedavg_q8": rounds},
+            "lm_moe_arena": {"masked_fedavg": rounds},
         }[leg]
 
     launches = dict.fromkeys(counters, 0)
@@ -564,8 +604,9 @@ def main() -> None:
                 assert arena.buffer.dtype == torch.float32 and arena.indices.dtype == torch.int32
                 assert tuple(arena.buffer.shape) == tuple(arena.indices.shape) == (N_MAIN, K_MAIN)
             else:
-                width = P_LM if leg.startswith("lm_") else P_MAIN
-                assert tuple(arena.buffer.shape) == (N_MAIN, width), arena.buffer.shape
+                shape = {"lm_moe_arena": (N_MOE, P_MOE)}.get(
+                    leg, (N_MAIN, P_LM if leg.startswith("lm_") else P_MAIN))
+                assert tuple(arena.buffer.shape) == shape, arena.buffer.shape
         if leg in ("arena", "secure"):
             assert c.arena.buffer.dtype == torch.float32
             assert up == N_MAIN * rounds * 4 * P_MAIN, up
@@ -658,12 +699,14 @@ def main() -> None:
                           "global_buffer": list(c.global_buffer.shape),
                           "max_memory_allocated": torch.cuda.max_memory_allocated(),
                           "seconds": time.perf_counter() - t_phase}), flush=True)
-        del history, c
         # The controller and its engine refer to each other: collect the
-        # cycle so the next leg starts without this leg's arena.
+        # cycle so the next leg (and the families line after the last) starts
+        # without this leg's arena, which ``arena`` also held.
+        history = c = arena = None
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"phase": "main", "eval_loss_by_round": eval_loss}), flush=True)
+    families_line(dev)
 
     if FAILURES:
         sys.exit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
@@ -2190,7 +2233,8 @@ def lm_sync_controller(train, dev, cfg, rounds: int, lr: float = 0.1):
     sequences of 24 tokens, sync rounds of 6 local SGD steps of batch 16, one
     dispatch worker, the initial model from host seed 0.  At ``sgd(0.1)``
     local training is stable (at 0.5 it is chaotic, and one ulp grows past
-    any bar).  Returns ``(controller, history)``; the controller is shut down."""
+    any bar).  Returns ``(controller, history, global buffer after each
+    round)``; the controller is shut down."""
     from repro_torch import optim
     from repro_torch.core import Controller, SyncProtocol
     from repro_torch.models import transformer
@@ -2202,11 +2246,14 @@ def lm_sync_controller(train, dev, cfg, rounds: int, lr: float = 0.1):
     ctrl.set_initial_model(transformer.init_params(torch.Generator().manual_seed(0), cfg, dev))
     for learner in fleet:
         ctrl.register_learner(learner)
+    history, buffers = [], []
     try:
-        history = ctrl.engine.run(rounds=rounds)
+        for _ in range(rounds):
+            history += ctrl.engine.run(rounds=1)
+            buffers.append(ctrl.global_buffer.clone())
     finally:
         ctrl.shutdown()
-    return ctrl, history
+    return ctrl, history, buffers
 
 
 def check_lm(train, dev, checks: dict) -> None:
@@ -2223,8 +2270,8 @@ def check_lm(train, dev, checks: dict) -> None:
     host = torch.device("cpu")
     for arch in ("qwen3-14b", "gemma3-4b"):
         cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
-        c_gpu, h_gpu = lm_sync_controller(train, dev, cfg, rounds=3)
-        c_cpu, h_cpu = lm_sync_controller(train, host, cfg, rounds=3)
+        c_gpu, h_gpu, _ = lm_sync_controller(train, dev, cfg, rounds=3)
+        c_cpu, h_cpu, _ = lm_sync_controller(train, host, cfg, rounds=3)
         checks[f"lm_{arch}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer, 1e-4,
                                       atol=1e-5, what=f"check lm {arch}")
         loss_gpu = [h.metrics["eval_loss"] for h in h_gpu]
@@ -2278,26 +2325,239 @@ def run_lm_federation(train, dev, rounds: int, **env):
 
 
 def check_lm_leg(leg: str, c, resident: dict) -> None:
-    """The LM legs' wire and arena: 32 uploads a round of the padded f32 row
-    (295,751,680 B) or its int8 wire (75,096,272 B), every int8 upload landed
-    directly and one fused reduce a round, the int8 arena about 3.9x smaller."""
+    """The LM legs' wire and arena: an upload per learner a round of the
+    padded f32 row (295,751,680 B at fedlm-100m, 4,912,103,424 B at the
+    one-layer qwen2-moe) or its int8 wire (75,096,272 B), every int8 upload
+    landed directly and one fused reduce a round, the int8 arena about 3.9x
+    smaller; the MoE leg's manifest holds 1,228,025,856 params."""
+    from repro_torch.core import packing
+
     tel = c.telemetry
     up = c.channel.stats.upload_bytes
     uploads = tel.value("channel.upload_messages")
-    assert uploads == N_MAIN * LEG_ROUNDS[leg], uploads
+    moe = leg == "lm_moe_arena"
+    assert uploads == (N_MOE if moe else N_MAIN) * LEG_ROUNDS[leg], uploads
     int8 = leg == "lm_int8_arena"
-    assert up == uploads * (LM_INT8_ROW_BYTES if int8 else 4 * P_LM), up
+    row = P_MOE if moe else P_LM
+    assert up == uploads * (LM_INT8_ROW_BYTES if int8 else 4 * row), up
     assert c.arena.buffer.dtype == (torch.int8 if int8 else torch.float32)
     assert tel.value("engine.uploads.quantized_direct") == (uploads if int8 else 0)
     assert tel.value("controller.aggregations.fused_q8") == (LEG_ROUNDS[leg] if int8 else 0)
+    params = packing.num_params(c.global_params)
+    assert params == (P_MOE if moe else P_LM_PARAMS), params
     line = {"phase": f"main.{leg}", "upload_bytes_per_upload": up // uploads,
             "bytes_resident": resident[leg], "dispatch_workers": c.engine._executor._max_workers,
-            "params": P_LM_PARAMS}
+            "params": params}
     if int8:
         shrink = resident["lm_arena"] / resident[leg]
         assert 3.8 < shrink < 4.0, shrink
         line["lm_arena_over_int8_bytes_resident"] = shrink
     print(json.dumps(line), flush=True)
+
+
+def moe_config():
+    """qwen2-moe-a2.7b at its published widths, one layer of its 24: d_model
+    2048, 16 heads of 128 with qkv bias, 60 routed experts padded to 64,
+    top-4 of ``moe_d_ff`` 1408, 4 shared experts of 5632, the untied
+    151,936-token head; bf16 compute."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=1)
+
+
+def time_moe_kernel(kfed, dev, errs: dict, card: str) -> None:
+    """Kernel 1 at the lm_moe_arena leg's (4, 1,228,025,856) f32 arena (19.65
+    GB, 4.91e9 elements, past 2^31): one row dead and NaN against the plain
+    version at 1e-5, two launches bit-identical; then timed all live beside
+    its bound (4 rows read and 1 written, 4 B each, over 3.35 TB/s) and
+    ``torch.mv``.  The plain version's (4, P) temporary is freed after."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n, p = N_MOE, P_MOE
+    rows = torch.randn((n, p), generator=gen, device=dev)
+    w = torch.rand((n,), generator=gen, device=dev) + 0.05
+    dead = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+    live = torch.ones((n,), device=dev)
+    saved = rows[1].clone()
+    rows[1] = float("nan")
+    got = kfed.masked_fedavg_cuda(rows, w, dead)
+    _expect(_same_bits(got, kfed.masked_fedavg_cuda(rows, w, dead)),
+            "masked_fedavg at the MoE arena: two launches differ")
+    err = _close(got, kfed.masked_fedavg_torch(rows, w, dead), 1e-5,
+                 what="masked_fedavg at the MoE arena, a NaN dead row")
+    rows[1] = saved
+    del got, saved
+    torch.cuda.empty_cache()
+    kern = lambda: kfed.masked_fedavg_cuda(rows, w, live)  # noqa: E731
+    err = max(err, _close(kern(), kfed.masked_fedavg_torch(rows, w, live), 1e-5,
+                          what="masked_fedavg MoE timed"))
+    errs["masked_fedavg"] = max(errs["masked_fedavg"], err)
+    w_hat = kfed.masked_normalize(w, live)
+    out = _timed("masked_fedavg", kern, lambda: kfed.masked_fedavg_torch(rows, w, live),
+                 lambda: torch.mv(rows.T, w_hat), n * p * 4 + 4 * p + 8 * n, 2 * n * p,
+                 [n, p], samples=10, inner=5)
+    out["max_abs_err"] = err
+    print(json.dumps({"phase": "kernels", "moe_shape": out, "card": card}), flush=True)
+    del rows, kern
+    torch.cuda.empty_cache()
+
+
+def _family_batch(cfg, b: int, s: int, dev, seed: int) -> dict:
+    """Random tokens and labels, and for an encoder-decoder random frames of
+    ``(b, encoder_seq_len, frontend_dim)``."""
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))).to(dev)
+             for k in ("tokens", "labels")}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq_len, cfg.frontend_dim), dtype=np.float32)).to(dev)
+    return batch
+
+
+def check_families(train, dev, checks: dict) -> None:
+    """The new families on the card against the host, f32 with TF32 off:
+    each reduced configuration's forward logits and ``lm_loss`` (the MoE aux
+    and MTP terms in it) on weights from one host seed at rtol 1e-4 / atol
+    1e-5; then a 3-round reduced qwen2-moe federation (as the dense ones in
+    ``check_lm``), its first round's global buffer and eval loss at the same
+    bar, every round's eval loss within 1% and falling.  Past the first
+    round a near-tied top-k route may take another expert on one device
+    (``tests/test_torch_lm_federation.py`` ``_EXACT_ROUNDS``); the final
+    buffers' difference is printed."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    host = torch.device("cpu")
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b", "mamba2-780m", "zamba2-1.2b",
+                 "whisper-large-v3"):
+        cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+        params = transformer.init_params(torch.Generator().manual_seed(0), cfg, host)
+        batch = _family_batch(cfg, 2, 64, host, 1)
+        with torch.no_grad():
+            want = transformer.forward(params, batch["tokens"], cfg, frames=batch.get("frames"))
+            want_loss = transformer.lm_loss(params, batch, cfg)
+            params = tree_map(lambda t: t.to(dev), params)
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            got = transformer.forward(params, batch["tokens"], cfg, frames=batch.get("frames"))
+            got_loss = transformer.lm_loss(params, batch, cfg)
+        V = cfg.vocab_size
+        checks[f"family_{arch}"] = _close(got[0][..., :V].cpu(), want[0][..., :V], 1e-4,
+                                          atol=1e-5, what=f"check {arch} forward")
+        _close(got_loss.cpu().reshape(1), want_loss.reshape(1), 1e-4, atol=1e-5,
+               what=f"check {arch} loss")
+        print(json.dumps({"phase": "check", "family": arch, "logits": list(got[0].shape),
+                          "aux_card": float(got[2]), "aux_host": float(want[2]),
+                          "loss_card": float(got_loss), "loss_host": float(want_loss)}),
+              flush=True)
+    cfg = dataclasses.replace(get_reduced("qwen2-moe-a2.7b"), dtype=torch.float32)
+    c_gpu, h_gpu, b_gpu = lm_sync_controller(train, dev, cfg, rounds=3)
+    c_cpu, h_cpu, b_cpu = lm_sync_controller(train, host, cfg, rounds=3)
+    checks["lm_qwen2-moe-a2.7b"] = _close(b_gpu[0].cpu(), b_cpu[0], 1e-4, atol=1e-5,
+                                          what="check lm qwen2-moe round 1")
+    loss_gpu = [h.metrics["eval_loss"] for h in h_gpu]
+    loss_cpu = [h.metrics["eval_loss"] for h in h_cpu]
+    _close(torch.tensor(loss_gpu[:1]), torch.tensor(loss_cpu[:1]), 1e-4, atol=1e-5,
+           what="check lm qwen2-moe round 1 eval loss")
+    _close(torch.tensor(loss_gpu), torch.tensor(loss_cpu), 1e-2, what="check lm qwen2-moe eval loss")
+    _expect(loss_gpu[-1] < loss_gpu[0], f"check lm qwen2-moe: eval loss {loss_gpu} did not fall")
+    print(json.dumps({"phase": "check", "lm": "qwen2-moe-a2.7b", "eval_loss_card": loss_gpu,
+                      "eval_loss_host": loss_cpu,
+                      "max_abs_err_by_round": [float((g.cpu() - h).abs().max())
+                                               for g, h in zip(b_gpu, b_cpu)],
+                      "params": int(c_gpu.global_buffer.shape[0])}), flush=True)
+
+
+def run_moe_federation(train, dev, rounds: int):
+    """The lm_moe_arena leg: ``moe_config()`` (1,228,025,856 params) as
+    ``launch/train.build_lm_learners`` builds its learners (4 of 64
+    sequences of 64 tokens, 4 local SGD steps of 16 at lr 0.05), the initial
+    model drawn on the card's generator, through a ``Controller`` with a
+    4-row arena and one learner in flight.  (``Driver`` builds its
+    controller with the default 8 arena rows, 39.3 GB at this width, and a
+    learner in flight beside it does not fit in 80 GB.)  Prints the loss at
+    init on a fresh batch of 16 x 64 tokens (near ln 151,936 = 11.93).
+    Returns ``(controller, history)``; the controller is shut down."""
+    from repro_torch import optim
+    from repro_torch.core import Controller, SyncProtocol
+    from repro_torch.models import transformer
+
+    cfg = moe_config()
+    fleet = train.build_lm_learners(cfg, N_MOE, 0, optimizer=optim.sgd(LR), device=dev)
+    initial = transformer.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    with torch.no_grad():
+        init_loss = float(transformer.lm_loss(initial, _family_batch(cfg, LM_BATCH, 64, dev, 2),
+                                              cfg))
+    print(json.dumps({"phase": "main.lm_moe_arena", "loss_at_init": init_loss,
+                      "ln_vocab": math.log(cfg.vocab_size), "learners": N_MOE,
+                      "dispatch_workers": MOE_WORKERS, "depth": "1 of 24 layers"}), flush=True)
+    assert math.isfinite(init_loss) and abs(init_loss - math.log(cfg.vocab_size)) < 2.0, init_loss
+    ctrl = Controller(protocol=SyncProtocol(LOCAL_STEPS, LM_BATCH, LR), arena_n_max=N_MOE,
+                      max_dispatch_workers=MOE_WORKERS, device=dev)
+    ctrl.set_initial_model(initial)
+    del initial
+    for learner in fleet:
+        ctrl.register_learner(learner)
+    try:
+        history = ctrl.engine.run(rounds=rounds)
+    finally:
+        ctrl.shutdown()
+    losses = [h.metrics["eval_loss"] for h in history]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], (init_loss, losses)
+    return ctrl, history
+
+
+def families_line(dev) -> None:
+    """One full-width train step on the card for each other new family
+    (``make_train_step``, SGD at lr 0.05, bf16 compute): deepseek-v3 at one
+    layer with its MTP module, mamba2-780m, zamba2-1.2b and whisper-large-v3,
+    on 16 x 64 tokens (whisper: 2 x 64 tokens and (2, 1500, 1280) frames; its
+    encoder's naive f32 scores are B x 20 x 1500^2 x 4 bytes a layer over 32
+    layers, 92 GB at batch 16).  Each: the manifest's total against the
+    reference's, the loss at init and its gradients finite, the median step
+    seconds of 3 after one warm-up, and the peak device memory."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.core import packing
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.tree import flatten
+
+    out = {"allocated_gb_before": torch.cuda.memory_allocated() / 1e9}
+    for arch, want in FAMILY_PARAMS.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        if arch == "deepseek-v3-671b":
+            cfg = dataclasses.replace(cfg, n_layers=1)
+        params = transformer.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+        total = packing.num_params(params)
+        assert total == want, (arch, total, want)
+        batch = _family_batch(cfg, 2 if cfg.is_encoder_decoder else LM_BATCH, 64, dev, 3)
+        grads, loss = torch.func.grad_and_value(
+            lambda p: transformer.lm_loss(p, batch, cfg))(params)
+        finite = all(bool(torch.isfinite(g).all()) for g in flatten(grads)[0])
+        assert math.isfinite(float(loss)) and finite, (arch, float(loss), finite)
+        del grads
+        step = make_train_step(cfg, optim.sgd(LR))
+        seconds = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            params, _, step_loss = step(params, (), batch)
+            torch.cuda.synchronize()
+            if i:
+                seconds.append(time.perf_counter() - ts)
+        assert math.isfinite(float(step_loss)), (arch, float(step_loss))
+        out[arch] = {"params": total, "loss_at_init": float(loss),
+                     "loss_after_4_steps": float(step_loss), "grads_finite": finite,
+                     "batch": list(batch["tokens"].shape),
+                     "step_s_median_of_3": statistics.median(seconds), "step_s": seconds,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "seconds": time.perf_counter() - t0}
+        del params, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "main.families", "families": out}), flush=True)
 
 
 if __name__ == "__main__":

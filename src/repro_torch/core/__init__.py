@@ -80,6 +80,7 @@ from repro_torch.core.transport import (
     Channel,
     ChannelStats,
     Envelope,
+    Int8UploadCodec,
     RawUploadCodec,
     UploadEnvelope,
     get_upload_codec,
@@ -110,5 +111,5 @@ __all__ = [
     "Driver", "FederationEnv", "TerminationCriteria", "FederationConfig",
     "FaultSpec", "FaultInjector", "FaultyChannel", "ADVERSARIAL_FATES",
     "Broadcast", "Channel", "ChannelStats", "Envelope",
-    "UploadEnvelope", "RawUploadCodec", "get_upload_codec",
+    "UploadEnvelope", "RawUploadCodec", "Int8UploadCodec", "get_upload_codec",
 ]

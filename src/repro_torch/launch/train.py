@@ -9,14 +9,16 @@ federation on the card:
 
 ``--arch housing-mlp --size 10m`` is the paper's stress-test model (100
 hidden layers of width 320, 10,174,081 parameters).  ``--arch fedlm-100m``
-trains the 73,937,664-parameter dense decoder LM, and an assigned dense
-architecture (``qwen3-14b``, ``qwen2-72b``, ``codeqwen1.5-7b``,
-``gemma3-4b``, ``llava-next-34b``'s text path) trains at full size or, with
-``--reduced``, at its smoke scale; each learner holds 64 synthetic sequences
-of 64 tokens (``build_lm_learners``).  The MoE, MLA, SSM, hybrid and
-encoder-decoder architectures raise ``NotImplementedError`` naming the
-port's slice that owes them; an unknown ``--arch`` raises the registry's
-``KeyError``.  ``--protocol`` picks the workflow: ``sync`` and
+trains the 73,937,664-parameter dense decoder LM, and an assigned
+architecture trains at full size or, with ``--reduced``, at its smoke
+scale: the dense ``qwen3-14b``, ``qwen2-72b``, ``codeqwen1.5-7b``,
+``gemma3-4b`` and ``llava-next-34b`` (its text path), the MoE
+``qwen2-moe-a2.7b`` and ``deepseek-v3-671b`` (MLA, multi-token prediction),
+the SSM ``mamba2-780m`` and the hybrid ``zamba2-1.2b``; each learner holds
+64 synthetic sequences of 64 tokens (``build_lm_learners``).  As in the
+reference's launcher, ``whisper-large-v3`` gets no audio frames and its
+first step raises ``AssertionError: enc-dec model needs frames or memory``;
+an unknown ``--arch`` raises the registry's ``KeyError``.  ``--protocol`` picks the workflow: ``sync`` and
 ``semi_sync`` run ``--rounds`` rounds, ``async`` ``--rounds`` community
 updates.  ``--server-opt``, ``--selection``/``--fraction`` and
 ``--prox-mu`` set the server optimizer, cohort selection and FedProx term
@@ -177,7 +179,6 @@ def main(argv: list[str] | None = None):
         cfg = fedlm_100m.config()
     elif args.arch != "housing-mlp":
         cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-        transformer.check_supported(cfg)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     full_f32()
     device = resolve_device(args.device)

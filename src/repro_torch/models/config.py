@@ -4,9 +4,7 @@ A framework-free copy of ``repro/models/config.py`` with torch dtypes.  One
 dataclass describes dense (GQA / MLA / sliding-window), MoE (shared + routed
 top-k), SSM (Mamba2/SSD), hybrid (Mamba2 + shared attention),
 encoder-decoder (Whisper), and stub-frontend (VLM/audio) architectures.
-Every field of the reference is kept, so every config constructs; the port
-runs the dense family (``models/transformer.py`` names the slice that owes
-the others).
+Every field of the reference is kept, and the port trains every family.
 
 The layer stack is described by a *pattern* of layer kinds that is cycled
 over ``n_layers`` and then compiled into homogeneous *segments*

@@ -1,6 +1,7 @@
-"""Model building blocks of the dense decoder: norms, RoPE, GQA attention, MLP.
+"""Model building blocks: norms, RoPE, attention (GQA, sliding, cross, MLA),
+MLP, MoE and Mamba2 (SSD).
 
-The port of the dense part of ``repro/models/layers.py``.  Pure functions
+The port of the train/prefill paths of ``repro/models/layers.py``.  Pure functions
 over parameter dicts of tensors (no ``nn.Module`` state, no in-place writes
 to parameters), so ``torch.func.grad_and_value`` differentiates a loss built
 from them.  Every block has an ``init_*`` (from an explicit
@@ -13,11 +14,16 @@ numerics:
   mask is ``-1e30`` in f32, the probabilities are cast back to q's dtype
   before the PV product;
 * the plain (ungated) MLP uses GELU's tanh approximation, as
-  ``jax.nn.gelu`` does by default.
+  ``jax.nn.gelu`` does by default;
+* the MoE router multiplies in f32 and takes the top k by a stable
+  descending sort (``lax.top_k``'s order: ties to the lower index); every
+  expert runs on every token, as in the reference's ``apply_moe_dense``;
+* Mamba2's SSD, its causal conv and its gated norm run in f32.
 
-Attention is plain torch arithmetic, as it is jnp in the reference (no
-Pallas kernel there).  The decode path (KV cache, flash decode) is slice H-4;
-MLA and MoE are H-2; Mamba2 is H-3.
+Everything here is plain torch arithmetic, as it is jnp in the reference (no
+Pallas kernel there).  Decoding with a cache (KV, MLA latent, SSM state) is
+slice H-4 of the port; the expert-parallel MoE (``apply_moe_ep``, a
+``shard_map``) is slice G.
 """
 
 from __future__ import annotations
@@ -31,8 +37,11 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "init_norm", "apply_norm", "rope_freqs", "apply_rope", "sinusoidal_embedding",
-    "init_attention", "apply_attention", "init_mlp", "apply_mlp",
+    "init_attention", "apply_attention", "init_mla", "apply_mla", "init_mlp", "apply_mlp",
+    "init_moe", "moe_aux_loss", "apply_moe_dense", "apply_moe", "init_mamba", "apply_mamba",
 ]
+
+_DECODE = "decoding with a cache is slice H-4 of the port"
 
 _NEG = -1e30  # the reference's additive mask value
 
@@ -132,12 +141,15 @@ def sinusoidal_embedding(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA, sliding window, qk-norm, optional bias)
+# attention (GQA, sliding window, qk-norm, optional bias, cross-attention)
 # ---------------------------------------------------------------------------
 
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    """``wq``, ``wk``, ``wv``, ``wo`` (+ ``b*`` with qkv bias, + qk-norm scales)."""
+    """``wq``, ``wk``, ``wv``, ``wo`` (+ ``b*`` with qkv bias, + qk-norm scales).
+
+    Cross-attention (whisper's ``xattn``) has the same leaves.
+    """
     D = cfg.d_model
     hd = cfg.resolved_head_dim
     H, KVH = cfg.n_heads, cfg.n_kv_heads
@@ -157,12 +169,14 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
+    """Queries from ``xq``, keys and values from ``xkv`` (``xq`` itself, or
+    the encoder's memory for cross-attention)."""
     hd = cfg.resolved_head_dim
     H, KVH = cfg.n_heads, cfg.n_kv_heads
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    q = xq @ p["wq"].to(xq.dtype)
+    k = xkv @ p["wk"].to(xkv.dtype)
+    v = xkv @ p["wv"].to(xkv.dtype)
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -262,35 +276,107 @@ def _use_chunked(cfg: ModelConfig, q_len: int, k_len: int) -> bool:
     return not cfg.attn_naive and q_len > 1 and k_len >= cfg.attn_chunk_min_len
 
 
+def _sdpa(q, k, v, cfg: ModelConfig, *, mode: str, window: int = 0) -> torch.Tensor:
+    """Chunked or naive attention, as the reference's ``_sdpa`` chooses, at
+    the scale ``1/sqrt(q's head dim)``; ``v``'s head dim may differ (MLA)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if _use_chunked(cfg, q.shape[1], k.shape[1]):
+        return _sdpa_chunked(q, k, v, scale=scale, mode=mode, window=window, q_offset=0,
+                             chunk=cfg.attn_k_chunk)
+    mask = _attn_mask(q.shape[1], k.shape[1], 0, mode, window, q.device)
+    return _sdpa_naive(q, k, v, mask, scale=scale)
+
+
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                    mode: str, kv_cache=None) -> tuple[torch.Tensor, None]:
-    """Self-attention over the whole sequence (train and prefill).
+                    mode: str, kv_cache=None,
+                    x_cross: torch.Tensor | None = None) -> tuple[torch.Tensor, None]:
+    """Self-attention over the whole sequence (train and prefill), or
+    cross-attention from ``x`` to ``x_cross`` (whisper's encoder memory: no
+    RoPE, the caller passes ``mode="full"``; query and key lengths differ).
 
     ``mode`` is ``"causal"``, ``"sliding"`` or ``"full"``.  Returns
     ``(y, None)``: the second item is the reference's updated cache, which
     the train/prefill branch does not produce.
     """
     if kv_cache is not None:
-        raise NotImplementedError("decode with a KV cache is slice H-4 of the port")
+        raise NotImplementedError(_DECODE)
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     n_rep = H // KVH
     B = x.shape[0]
 
-    q, k, v = _project_qkv(p, x, cfg)
-    if cfg.pos_embedding == "rope":
+    q, k, v = _project_qkv(p, x, x if x_cross is None else x_cross, cfg)
+    if cfg.pos_embedding == "rope" and x_cross is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    scale = 1.0 / math.sqrt(hd)
-    if _use_chunked(cfg, q.shape[1], k.shape[1]):
-        out = _sdpa_chunked(q, k, v, scale=scale, mode=mode, window=cfg.sliding_window,
-                            q_offset=0, chunk=cfg.attn_k_chunk)
-    else:
-        mask = _attn_mask(q.shape[1], k.shape[1], 0, mode, cfg.sliding_window, x.device)
-        out = _sdpa_naive(q, k, v, mask, scale=scale)
+    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), cfg, mode=mode,
+                window=cfg.sliding_window)
     out = out.reshape(B, -1, H * hd)
+    return out @ p["wo"].to(out.dtype), None
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Low-rank q (``wq_a``, ``q_norm``, ``wq_b``) and the shared kv latent
+    with its rope key (``wkv_a``, ``kv_norm``), its per-head expansions
+    (``wk_b``, ``wv_b``) and ``wo``."""
+    D, H = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": _dense_init(generator, (D, rq), cfg.param_dtype),
+        "q_norm": torch.ones((rq,), dtype=cfg.param_dtype),
+        "wq_b": _dense_init(generator, (rq, H * (dn + dr)), cfg.param_dtype),
+        "wkv_a": _dense_init(generator, (D, rkv + dr), cfg.param_dtype),
+        "kv_norm": torch.ones((rkv,), dtype=cfg.param_dtype),
+        "wk_b": _dense_init(generator, (rkv, H * dn), cfg.param_dtype),
+        "wv_b": _dense_init(generator, (rkv, H * dv), cfg.param_dtype),
+        "wo": _dense_init(generator, (H * dv, D), cfg.param_dtype),
+    }
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = _rms_head_norm(p["q_norm"], x @ p["wq_a"].to(x.dtype))
+    q = (cq @ p["wq_b"].to(x.dtype)).reshape(*x.shape[:-1], H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The normed latent ``(B, S, rkv)`` and the rotated shared key ``(B, S, dr)``."""
+    rkv = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"].to(x.dtype)
+    c_kv = _rms_head_norm(p["kv_norm"], kv[..., :rkv])
+    k_pe = apply_rope(kv[..., None, rkv:], positions, cfg.rope_theta)[..., 0, :]
+    return c_kv, k_pe
+
+
+def apply_mla(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
+              mode: str, kv_cache=None) -> tuple[torch.Tensor, None]:
+    """Multi-head latent attention, train/prefill: the latent expanded to
+    per-head keys and values, the shared rope key concatenated onto every
+    head's nope key, causal attention at scale ``1/sqrt(nope + rope)`` with
+    value heads of ``v_head_dim``.  ``mode`` is accepted as the reference
+    accepts it; MLA is always causal.  The absorbed decode is slice H-4."""
+    if kv_cache is not None:
+        raise NotImplementedError(_DECODE)
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(B, S, H, dn)
+    v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(B, S, H, dv)
+    q_eff = torch.cat([q_nope, q_rope], dim=-1)
+    k_eff = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    out = _sdpa(q_eff, k_eff, v, cfg, mode="causal").reshape(B, S, H * dv)
     return out @ p["wo"].to(out.dtype), None
 
 
@@ -328,3 +414,198 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "b_down" in p:
         y = y + p["b_down"].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# MoE: shared experts + routed top-k, every expert on every token
+# ---------------------------------------------------------------------------
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """``router`` (σ = 0.02), the stacked experts ``we_gate``/``we_up``
+    ``(E, D, F)`` and ``we_down`` ``(E, F, D)`` over the padded expert count,
+    and a dense ``shared`` MLP when the config has shared experts."""
+    D, E, Fd = cfg.d_model, cfg.padded_n_experts, cfg.moe_d_ff
+    p = {
+        "router": _dense_init(generator, (D, E), cfg.param_dtype, scale=0.02),
+        "we_gate": _dense_init(generator, (E, D, Fd), cfg.param_dtype),
+        "we_up": _dense_init(generator, (E, D, Fd), cfg.param_dtype),
+        "we_down": _dense_init(generator, (E, Fd, D), cfg.param_dtype),
+    }
+    if cfg.n_shared_experts > 0:
+        p["shared"] = init_mlp(generator, cfg,
+                               d_ff=cfg.shared_d_ff or cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+def _router_probs(p: dict, x_flat: torch.Tensor, cfg: ModelConfig):
+    """``(probs, gates, idx)``: f32 softmax over the experts (padded ones at
+    ``-1e30``), the top ``cfg.top_k`` by a stable descending sort (ties to
+    the lower index, as ``lax.top_k``), gates renormalized by
+    ``clip(sum, 1e-9)``.
+
+    The router is rounded to ``x``'s dtype, then multiplied in f32: the
+    reference's ``preferred_element_type=f32`` (a bf16 matmul would round
+    its output).
+    """
+    E, E_real = cfg.padded_n_experts, cfg.n_experts
+    logits = x_flat.float() @ p["router"].to(x_flat.dtype).float()
+    if E != E_real:
+        pad = torch.arange(E, device=logits.device) >= E_real
+        logits = torch.where(pad, torch.full((), _NEG, device=logits.device), logits)
+    probs = torch.softmax(logits, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[:, :cfg.top_k], order[:, :cfg.top_k]
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, gates, idx
+
+
+def moe_aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load balance, ``E · Σ_e f_e · P_e``: ``f`` the routed
+    share of each expert (counts, not differentiated), ``P`` its mean
+    probability (the gradient's only path)."""
+    E = cfg.padded_n_experts
+    T = probs.shape[0]
+    flat = expert_idx.reshape(-1)
+    counts = torch.zeros((E,), dtype=torch.float32, device=probs.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=probs.device))
+    f = counts / (T * cfg.top_k)
+    return E * (f * probs.mean(dim=0)).sum()
+
+
+def apply_moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The reference's MoE: **every expert on every token** (``(T, E, F)``
+    through ``einsum``), combined with the top-k gates through a one-hot, so
+    an unchosen expert's NaN reaches the output as ``NaN · 0`` there too.
+    Plus the shared experts' dense MLP.  Returns ``(y, aux)``."""
+    B, S, D = x.shape
+    xf = x.reshape(-1, D)
+    probs, gates, idx = _router_probs(p, xf, cfg)
+    h = torch.einsum("td,edf->tef", xf, p["we_gate"].to(x.dtype))
+    u = torch.einsum("td,edf->tef", xf, p["we_up"].to(x.dtype))
+    eo = torch.einsum("tef,efd->ted", F.silu(h) * u, p["we_down"].to(x.dtype))
+    onehot = F.one_hot(idx, cfg.padded_n_experts).to(x.dtype)  # (T, k, E)
+    comb = torch.einsum("tk,tke->te", gates.to(x.dtype), onehot)
+    y = torch.einsum("te,ted->td", comb, eo).reshape(B, S, D)
+    aux = moe_aux_loss(probs, idx, cfg)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x, cfg)
+    return y, aux
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """One device: the dense MoE (the reference's choice without an active
+    sharding policy; its expert-parallel path is slice G)."""
+    return apply_moe_dense(p, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, state space duality)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """``in_proj`` (z, x, B, C, dt), the depthwise ``conv_w``/``conv_b``,
+    ``A_log = log(linspace(1, 16, H))``, ``D_skip`` 1, ``dt_bias`` at
+    softplus⁻¹(0.01), the gated norm's ``norm`` and ``out_proj``."""
+    D = cfg.d_model
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    pd = cfg.param_dtype
+    return {
+        "in_proj": _dense_init(generator, (D, 2 * di + 2 * N + H), pd),
+        "conv_w": _dense_init(generator, (cfg.conv_width, di + 2 * N), pd, scale=0.2),
+        "conv_b": torch.zeros((di + 2 * N,), dtype=pd),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H)).to(pd),
+        "D_skip": torch.ones((H,), dtype=pd),
+        "dt_bias": torch.log(torch.expm1(torch.full((H,), 0.01))).to(pd),
+        "norm": torch.ones((di,), dtype=pd),
+        "out_proj": _dense_init(generator, (di, D), pd),
+    }
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along S, in f32, then SiLU.  xBC: (B, S, C); w: (W, C)."""
+    W, S = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, W - 1, 0))
+    out = torch.zeros(xBC.shape, dtype=torch.float32, device=xBC.device)
+    for i in range(W):
+        out = out + pad[:, i:i + S, :].float() * w[i].float()
+    return F.silu(out + b.float()).to(xBC.dtype)
+
+
+def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Chunked SSD scan, in f32.
+
+    xh: (B, S, H, P); dt: (B, S, H), positive; A: (H,), negative; Bm, Cm:
+    (B, S, N), one group.  Returns y: (B, S, H, P).  The tail is padded with
+    ``dt = 0`` (unit decay, no state writes); the reference's inter-chunk
+    ``lax.scan`` is a loop over chunks.  The intra-chunk decay keeps the
+    reference's ``where(tri, exp(rel), 0)``: ``exp`` of the positive ``rel``
+    above the diagonal is computed and discarded, as there.
+    """
+    Bsz, S, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        pad = Q - S % Q
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = xh.shape[1] // Q
+    xc = xh.reshape(Bsz, nc, Q, H, Pd).float()
+    dtc = dt.reshape(Bsz, nc, Q, H).float()
+    Bc = Bm.reshape(Bsz, nc, Q, N).float()
+    Cc = Cm.reshape(Bsz, nc, Q, N).float()
+
+    cum_a = torch.cumsum(dtc * A, dim=2)  # (B, nc, Q, H) inclusive log-decay
+
+    # intra-chunk: L[t, s] = exp(cum_a[t] - cum_a[s]) for t >= s
+    rel = cum_a[:, :, :, None, :] - cum_a[:, :, None, :, :]  # (B, nc, Q, Q, H)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
+    Lmat = torch.where(tri[None, None, :, :, None], torch.exp(rel),
+                       torch.zeros((), device=xh.device))
+    scores = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    xdt = xc * dtc[..., None]
+    y_diag = torch.einsum("bctsh,bcshp->bcthp", scores[..., None] * Lmat, xdt)
+
+    # each chunk's own state: Σ_s exp(cum_a[Q-1] - cum_a[s]) dt_s B_s ⊗ x_s
+    decay_to_end = torch.exp(cum_a[:, :, -1:, :] - cum_a)
+    st = torch.einsum("bcsh,bcsn,bcshp->bchpn", decay_to_end * dtc, Bc, xc)
+
+    # the state entering each chunk, chunk by chunk
+    chunk_decay = torch.exp(cum_a[:, :, -1, :])  # (B, nc, H)
+    carry = torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=xh.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + st[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (B, nc, H, P, N)
+
+    y_off = torch.einsum("bctn,bcth,bchpn->bcthp", Cc, torch.exp(cum_a), prev_states)
+    return (y_diag + y_off).reshape(Bsz, nc * Q, H, Pd)[:, :S]
+
+
+def apply_mamba(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                cache=None) -> tuple[torch.Tensor, None]:
+    """Mamba2 mixer, train/prefill: in-projection, causal conv, chunked SSD
+    plus the ``D`` skip, the gated RMS norm ``norm(y · silu(z))`` in f32,
+    out-projection.  The one-step recurrence over a cache is slice H-4."""
+    if cache is not None:
+        raise NotImplementedError(_DECODE)
+    B, S, _ = x.shape
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    proj = x @ p["in_proj"].to(x.dtype)
+    z, xi, Bm, Cm, dt_raw = torch.split(proj, [di, di, N, N, H], dim=-1)
+    xBC = _causal_conv(torch.cat([xi, Bm, Cm], dim=-1), p["conv_w"], p["conv_b"])
+    xi, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    xh = xi.reshape(B, S, H, cfg.ssm_head_dim)
+    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+
+    y = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + p["D_skip"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(B, S, di) * F.silu(z.float())
+    y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-6) * p["norm"].float()
+    return y.to(x.dtype) @ p["out_proj"].to(x.dtype), None

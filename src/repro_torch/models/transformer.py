@@ -1,31 +1,38 @@
-"""The dense decoder: segments of stacked layers, embedding, head and LM loss.
+"""Model composition: segments of stacked layers, decoder-only, hybrid and
+encoder-decoder, the embedding, the head and the LM loss.
 
-The port of the dense family of ``repro/models/transformer.py``.  The params
-tree has the reference's structure leaf for leaf: ``"segments"`` is a list
-(one entry per ``plan_segments`` segment) of tuples (one dict per layer of
-the segment's unit), and every leaf under it has a leading ``repeats`` axis,
-also when ``repeats == 1``.  So ``core/packing.build_manifest`` gives the
-reference's manifest (names, shapes, dtypes, offsets) and weights carry
-across with ``core/packing.tree_from_numpy``.
+The port of the train/prefill paths of ``repro/models/transformer.py``.  The
+params tree has the reference's structure leaf for leaf: ``"segments"`` is a
+list (one entry per ``plan_segments`` segment) of tuples (one dict per layer
+of the segment's unit), and every leaf under it has a leading ``repeats``
+axis, also when ``repeats == 1``; ``shared_block`` (zamba2's tied attention
+block), ``encoder`` (whisper) and ``mtp`` (deepseek's multi-token
+prediction, its ``layer`` with a leading axis of 1) are where the reference
+has them.  So ``core/packing.build_manifest`` gives the reference's manifest
+(names, shapes, dtypes, offsets) and weights carry across with
+``core/packing.tree_from_numpy``.
 
 Where the reference runs ``lax.scan`` over a segment's leading axis, the
 port loops over it in Python, in the same layer order.  ``cfg.remat`` is not
 acted on (it changes no number).
 
+Every family of the reference trains: the dense decoder (``ATTN``/``SWA``,
+with or without a modality ``frontend_proj``), MoE and MLA with MTP, Mamba2,
+the Mamba2 + shared-attention hybrid and the encoder-decoder.  Decoding with
+a cache is slice H-4 of the port.
+
 Public entry points:
 
 * ``init_params(generator, cfg, device)``
+* ``encode(params, frames, cfg)`` — the audio encoder over frame embeddings
 * ``forward(params, tokens, cfg, ...)`` — train/prefill logits
-* ``lm_loss(params, batch, cfg)`` — the causal LM objective
-
-The dense family is the ``ATTN`` and ``SWA`` layer kinds with a dense MLP,
-with or without a modality ``frontend_proj``.  MoE, MLA and multi-token
-prediction are slice H-2; Mamba2, the shared-attention hybrid and the
-encoder-decoder are H-3; decoding with a KV cache is H-4.
+* ``lm_loss(params, batch, cfg)`` — the causal LM objective (+ MoE aux,
+  + MTP when configured)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -33,27 +40,11 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models.config import (
-    ATTN, SWA, LayerSpec, ModelConfig, Segment, plan_segments,
+    ATTN, MAMBA, SHARED_ATTN, SWA, XATTN, LayerSpec, ModelConfig, Segment, plan_segments,
 )
 from repro_torch.tree import tree_map
 
-__all__ = ["check_supported", "init_params", "forward", "lm_loss"]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the port's slice that owes ``cfg``'s
-    family (MoE, MLA, MTP: H-2; Mamba2, the hybrid, the encoder-decoder:
-    H-3) unless it is the dense decoder family."""
-    owed = None
-    if cfg.n_experts or cfg.attn_impl == "mla" or cfg.mtp_depth:
-        owed = "H-2"
-    elif set(cfg.layer_pattern) - {ATTN, SWA} or cfg.is_encoder_decoder:
-        owed = "H-3"
-    if owed is not None:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.arch_type}): this model family is slice {owed} of the port "
-            "(ROADMAP.md); the port trains the dense decoder family"
-        )
+__all__ = ["init_params", "encode", "forward", "lm_loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -62,15 +53,38 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
-    """One dense layer's params: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
-    p: dict[str, Any] = {
+    """One layer's params for its spec: ``norm1``/``mamba`` (``MAMBA``), an
+    ``adapter_scale`` (``SHARED_ATTN``: the weights are ``shared_block``'s),
+    else ``norm1``, ``attn`` (GQA or MLA), ``norm_x``/``xattn`` (``XATTN``),
+    ``norm2`` and ``moe`` or ``mlp``."""
+    if spec.kind == MAMBA:
+        return {"norm1": layers.init_norm(cfg), "mamba": layers.init_mamba(generator, cfg)}
+    if spec.kind == SHARED_ATTN:
+        return {"adapter_scale": torch.ones((cfg.d_model,), dtype=cfg.param_dtype)}
+    p: dict[str, Any] = {"norm1": layers.init_norm(cfg)}
+    if cfg.attn_impl == "mla":
+        p["attn"] = layers.init_mla(generator, cfg)
+    else:
+        p["attn"] = layers.init_attention(generator, cfg)
+    if spec.kind == XATTN:
+        p["norm_x"] = layers.init_norm(cfg)
+        p["xattn"] = layers.init_attention(generator, cfg)
+    p["norm2"] = layers.init_norm(cfg)
+    if spec.moe:
+        p["moe"] = layers.init_moe(generator, cfg)
+    elif cfg.d_ff > 0:
+        p["mlp"] = layers.init_mlp(generator, cfg)
+    return p
+
+
+def _init_shared_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Zamba2's tied full-attention transformer block."""
+    return {
         "norm1": layers.init_norm(cfg),
         "attn": layers.init_attention(generator, cfg),
         "norm2": layers.init_norm(cfg),
+        "mlp": layers.init_mlp(generator, cfg),
     }
-    if cfg.d_ff > 0:
-        p["mlp"] = layers.init_mlp(generator, cfg)
-    return p
 
 
 def _stack_init(generator: torch.Generator, cfg: ModelConfig, seg: Segment) -> tuple:
@@ -83,10 +97,11 @@ def _stack_init(generator: torch.Generator, cfg: ModelConfig, seg: Segment) -> t
 def init_params(generator: torch.Generator, cfg: ModelConfig, device: torch.device | str):
     """Random init from ``generator`` (drawn on its device), then moved to ``device``.
 
-    Embedding ``(Vp, D)`` at σ = 0.02, every projection at σ = 1/sqrt(fan_in),
-    truncated at ±2σ; norm scales 1, biases 0.
+    Embedding ``(Vp, D)`` at σ = 0.02, the router at 0.02, every projection
+    at σ = 1/sqrt(fan_in) (Mamba2's conv at 0.2), truncated at ±2σ; norm
+    scales and adapters 1, biases 0; Mamba2's ``A_log``, ``D_skip`` and
+    ``dt_bias`` as the reference sets them.
     """
-    check_supported(cfg)
     Vp, D = cfg.padded_vocab_size, cfg.d_model
     params: dict[str, Any] = {
         "embed": layers._dense_init(generator, (Vp, D), cfg.param_dtype, scale=0.02),
@@ -95,10 +110,30 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device: torch.devi
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers._dense_init(generator, (D, Vp), cfg.param_dtype)
+    if any(s.kind == SHARED_ATTN for s in cfg.layer_specs()):
+        params["shared_block"] = _init_shared_block(generator, cfg)
     if cfg.frontend is not None:
         params["frontend_proj"] = layers._dense_init(
             generator, (cfg.frontend_dim, D), cfg.param_dtype)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "segments": [_stack_init(generator, cfg, _encoder_segment(cfg))],
+            "final_norm": layers.init_norm(cfg),
+        }
+    if cfg.mtp_depth > 0:
+        params["mtp"] = {
+            "proj": layers._dense_init(generator, (2 * D, D), cfg.param_dtype),
+            "norm_h": layers.init_norm(cfg),
+            "norm_e": layers.init_norm(cfg),
+            "layer": tree_map(lambda t: t[None],
+                              _init_layer(generator, cfg, LayerSpec(kind=ATTN))),
+            "final_norm": layers.init_norm(cfg),
+        }
     return tree_map(lambda t: t.to(device), params)
+
+
+def _encoder_segment(cfg: ModelConfig) -> Segment:
+    return Segment(unit=(LayerSpec(kind=ATTN),), repeats=cfg.n_encoder_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -107,27 +142,71 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device: torch.devi
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """Pre-norm attention (sliding for ``SWA``, causal otherwise), then the MLP."""
+                 positions: torch.Tensor, shared_block: dict | None = None,
+                 memory: torch.Tensor | None = None):
+    """One layer; returns ``(x, aux)``, ``aux`` the MoE load-balance loss (0
+    elsewhere).
+
+    ``SHARED_ATTN`` runs ``shared_block`` (causal attention scaled by the
+    layer's ``adapter_scale``, then its MLP); ``MAMBA`` the Mamba2 mixer;
+    the attention family pre-norm attention (sliding for ``SWA``, causal
+    otherwise), cross-attention to ``memory`` for ``XATTN``, then the MoE or
+    the MLP.
+    """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind == SHARED_ATTN:
+        sb = shared_block
+        h = layers.apply_norm(sb["norm1"], x, cfg)
+        a, _ = layers.apply_attention(sb["attn"], h, cfg, positions=positions, mode="causal")
+        x = x + a * p["adapter_scale"].to(x.dtype)
+        h = layers.apply_norm(sb["norm2"], x, cfg)
+        return x + layers.apply_mlp(sb["mlp"], h, cfg), aux
+    if spec.kind == MAMBA:
+        h = layers.apply_norm(p["norm1"], x, cfg)
+        y, _ = layers.apply_mamba(p["mamba"], h, cfg)
+        return x + y, aux
+
     mode = "sliding" if spec.kind == SWA else "causal"
     h = layers.apply_norm(p["norm1"], x, cfg)
-    a, _ = layers.apply_attention(p["attn"], h, cfg, positions=positions, mode=mode)
+    attend = layers.apply_mla if cfg.attn_impl == "mla" else layers.apply_attention
+    a, _ = attend(p["attn"], h, cfg, positions=positions, mode=mode)
     x = x + a
+    if spec.kind == XATTN:
+        h = layers.apply_norm(p["norm_x"], x, cfg)
+        a, _ = layers.apply_attention(p["xattn"], h, cfg, positions=positions, mode="full",
+                                      x_cross=memory)
+        x = x + a
     h = layers.apply_norm(p["norm2"], x, cfg)
-    if "mlp" in p:
+    if "moe" in p:
+        y, aux = layers.apply_moe(p["moe"], h, cfg)
+        x = x + y
+    elif "mlp" in p:
         x = x + layers.apply_mlp(p["mlp"], h, cfg)
-    return x
+    return x, aux
 
 
 def _run_segments(params_segments: list, x: torch.Tensor, cfg: ModelConfig,
-                  segs: list[Segment], *, positions: torch.Tensor) -> torch.Tensor:
-    """Apply every segment: for each step of its leading axis, its unit in order."""
+                  segs: list[Segment], *, positions: torch.Tensor,
+                  shared_block: dict | None = None, memory: torch.Tensor | None = None,
+                  encoder: bool = False):
+    """Apply every segment: for each step of its leading axis, its unit in
+    order.  Returns ``(x, aux)``, the MoE aux summed over the layers.
+
+    With ``encoder=True`` every spec runs as ``ATTN``, hence with *causal*
+    self-attention, as the reference's encoder does (its ``_encoder_mode``,
+    which would make it bidirectional, is never called).
+    """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_params in zip(segs, params_segments):
         for r in range(seg.repeats):
             p_unit = tree_map(lambda a: a[r], seg_params)
             for li, spec in enumerate(seg.unit):
-                x = _apply_layer(p_unit[li], x, cfg, spec, positions=positions)
-    return x
+                if encoder:
+                    spec = dataclasses.replace(spec, kind=ATTN)
+                x, a = _apply_layer(p_unit[li], x, cfg, spec, positions=positions,
+                                    shared_block=shared_block, memory=memory)
+                aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -163,21 +242,43 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# encoder (whisper)
+# ---------------------------------------------------------------------------
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The audio encoder over stubbed (precomputed) frame embeddings
+    ``(B, S_enc, frontend_dim)``: ``frontend_proj``, sinusoidal positions,
+    the encoder's layers (causal, as in the reference) and its final norm."""
+    enc = params["encoder"]
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = frames.to(cfg.dtype) @ params["frontend_proj"].to(cfg.dtype)
+    x = x + layers.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+    x, _ = _run_segments(enc["segments"], x, cfg, [_encoder_segment(cfg)],
+                         positions=positions, encoder=True)
+    return layers.apply_norm(enc["final_norm"], x, cfg)
+
+
+# ---------------------------------------------------------------------------
 # forward / loss
 # ---------------------------------------------------------------------------
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            prefix_embeds: torch.Tensor | None = None):
-    """Token logits for train/prefill (decoding with a KV cache is slice H-4).
+            prefix_embeds: torch.Tensor | None = None, memory: torch.Tensor | None = None,
+            frames: torch.Tensor | None = None, return_hidden: bool = False):
+    """Token logits for train/prefill (decoding with a cache is slice H-4).
 
     ``tokens`` (B, S) int64; ``prefix_embeds`` (B, n_pre, frontend_dim) are
     a VLM's patch embeddings, projected by ``frontend_proj`` and prepended
-    (their positions come first; their logits are dropped).  Returns
-    ``(logits, None, aux)`` as the reference does (no caches; ``aux`` is the
-    MoE auxiliary loss, 0 for the dense family).
+    (their positions come first; their logits are dropped).  An
+    encoder-decoder takes the encoder's ``memory``, or ``frames`` to encode,
+    and raises the reference's ``AssertionError`` with neither.  Returns
+    ``(logits, None, aux)`` as the reference does (no caches; ``aux`` the
+    MoE load-balance loss summed over the layers), plus the final hidden
+    states before the final norm with ``return_hidden`` (the MTP head's
+    input).
     """
-    check_supported(cfg)
     S = tokens.shape[1]
     n_pre = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     positions = torch.arange(n_pre + S, device=tokens.device)[None, :]
@@ -187,12 +288,20 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         pre = prefix_embeds.to(cfg.dtype) @ params["frontend_proj"].to(cfg.dtype)
         x = torch.cat([pre, x.to(pre.dtype)], dim=1)
 
-    x = _run_segments(params["segments"], x, cfg, plan_segments(cfg), positions=positions)
+    if cfg.is_encoder_decoder and memory is None:
+        if frames is None:
+            raise AssertionError("enc-dec model needs frames or memory")
+        memory = encode(params, frames, cfg)
+
+    x, aux = _run_segments(params["segments"], x, cfg, plan_segments(cfg), positions=positions,
+                           shared_block=params.get("shared_block"), memory=memory)
 
     if prefix_embeds is not None:
         x = x[:, n_pre:]
     logits = _logits(params, x, cfg)
-    return logits, None, torch.zeros((), dtype=torch.float32, device=logits.device)
+    if return_hidden:
+        return logits, None, aux, x
+    return logits, None, aux
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -202,11 +311,31 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Causal LM loss: mean next-token cross-entropy in f32.
+    """Causal LM loss: mean next-token cross-entropy in f32, plus
+    ``router_aux_coef · aux`` with experts, plus deepseek's MTP term
+    ``0.3 · xent`` of the token after next, predicted from
+    ``[norm_h(h_t); norm_e(embed[label_t])] @ proj`` through one more layer.
 
     batch: ``{"tokens": (B, S), "labels": (B, S)}`` int64, plus an optional
-    ``"prefix_embeds"`` (VLM).
+    ``"prefix_embeds"`` (VLM) or ``"frames"`` (audio encoder-decoder).
     """
-    logits, _, _ = forward(params, batch["tokens"], cfg,
-                           prefix_embeds=batch.get("prefix_embeds"))
-    return _xent(logits, batch["labels"])
+    logits, _, aux, h = forward(params, batch["tokens"], cfg,
+                                prefix_embeds=batch.get("prefix_embeds"),
+                                frames=batch.get("frames"), return_hidden=True)
+    loss = _xent(logits, batch["labels"])
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux
+    if cfg.mtp_depth > 0:
+        mtp = params["mtp"]
+        emb_next = params["embed"].to(cfg.dtype)[batch["labels"]]
+        hcat = torch.cat([layers.apply_norm(mtp["norm_h"], h, cfg),
+                          layers.apply_norm(mtp["norm_e"], emb_next, cfg)], dim=-1)
+        h2 = hcat @ mtp["proj"].to(hcat.dtype)
+        positions = torch.arange(batch["tokens"].shape[1], device=h2.device)[None, :]
+        h2, _ = _apply_layer(tree_map(lambda a: a[0], mtp["layer"]), h2, cfg,
+                             LayerSpec(kind=ATTN), positions=positions)
+        h2 = layers.apply_norm(mtp["final_norm"], h2, cfg)
+        logits2 = _logits(params, h2, cfg)
+        # position t predicts label t+1
+        loss = loss + 0.3 * _xent(logits2[:, :-1], batch["labels"][:, 1:])
+    return loss

@@ -48,31 +48,34 @@ class Structure:
         return f"Structure({self.kind!r}, keys={self.keys!r}, children={len(self.children)})"
 
 
+def _walk(node: Any, path: str, out: list[tuple[str, Any]]) -> Structure:
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return Structure(
+            "dict", keys, tuple(_walk(node[k], f"{path}[{k!r}]", out) for k in keys)
+        )
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return Structure(
+            "namedtuple", (type(node),),
+            tuple(_walk(v, f"{path}.{f}", out) for f, v in zip(node._fields, node)),
+        )
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return Structure(
+            kind, (), tuple(_walk(v, f"{path}[{i}]", out) for i, v in enumerate(node))
+        )
+    out.append((path, node))
+    return Structure("leaf")
+
+
 def flatten_with_path(tree: Any) -> tuple[list[tuple[str, Any]], Structure]:
     """``[(keystr_name, leaf), ...]`` in the reference's walk order, plus the
     structure that :func:`unflatten` rebuilds from."""
+    # Module-level recursion: a nested function that calls itself is a
+    # reference cycle, and its closure would keep every leaf (a model's
+    # tensors) alive until the cyclic garbage collector runs.
     out: list[tuple[str, Any]] = []
-
-    def walk(node: Any, path: str) -> Structure:
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return Structure(
-                "dict", keys, tuple(walk(node[k], f"{path}[{k!r}]") for k in keys)
-            )
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return Structure(
-                "namedtuple", (type(node),),
-                tuple(walk(v, f"{path}.{f}") for f, v in zip(node._fields, node)),
-            )
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return Structure(
-                kind, (), tuple(walk(v, f"{path}[{i}]") for i, v in enumerate(node))
-            )
-        out.append((path, node))
-        return Structure("leaf")
-
-    structure = walk(tree, "")
+    structure = _walk(tree, "", out)
     return out, structure
 
 
@@ -82,21 +85,21 @@ def flatten(tree: Any) -> tuple[list[Any], Structure]:
     return [leaf for _, leaf in named], structure
 
 
+def _build(s: Structure, it: Any) -> Any:
+    if s.kind == "leaf":
+        return next(it)
+    children = [_build(c, it) for c in s.children]
+    if s.kind == "dict":
+        return dict(zip(s.keys, children))
+    if s.kind == "namedtuple":
+        return s.keys[0](*children)
+    return children if s.kind == "list" else tuple(children)
+
+
 def unflatten(structure: Structure, leaves: list[Any]) -> Any:
     """Inverse of :func:`flatten`."""
     it = iter(leaves)
-
-    def build(s: Structure) -> Any:
-        if s.kind == "leaf":
-            return next(it)
-        children = [build(c) for c in s.children]
-        if s.kind == "dict":
-            return dict(zip(s.keys, children))
-        if s.kind == "namedtuple":
-            return s.keys[0](*children)
-        return children if s.kind == "list" else tuple(children)
-
-    out = build(structure)
+    out = _build(structure, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out

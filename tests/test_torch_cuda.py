@@ -42,7 +42,12 @@ bits on two calls and equals the host's to rtol 1e-6.  The dense LM:
 kernels 1 and 5 at fedlm-100m's ``(32, 73,937,920)`` arenas (9.46 GB f32,
 past 2^31 elements; 2.37 GB int8) with NaN dead rows against their plain
 versions (1e-5, 2e-5), and fedlm-100m's full-width f32 forward and loss on
-the card against the host at rtol 1e-4 / atol 1e-5.
+the card against the host at rtol 1e-4 / atol 1e-5.  The other families:
+kernel 1 at the one-layer qwen2-moe-a2.7b's ``(4, 1,228,025,856)`` arena
+(19.65 GB, past 2^31 elements) with a NaN dead row; each new family's
+reduced f32 forward and loss, and the dense MoE, MLA and the chunked SSD,
+card against host at rtol 1e-4 / atol 1e-5 (the MoE's atol scaled to its
+outputs' magnitude).
 """
 
 import dataclasses
@@ -819,3 +824,108 @@ def test_fedlm_100m_forward_on_the_card_matches_the_host(cuda_device):
     np.testing.assert_allclose(got[..., :V].cpu().numpy(), want[..., :V].numpy(),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-4, atol=1e-5)
+
+
+P_MOE = 1_228_025_856  # qwen2-moe-a2.7b at full width, one layer: its arena row
+
+
+def test_fedavg_kernel_at_the_moe_arena(cuda_device):
+    """The lm_moe_arena leg's (4, 1,228,025,856) f32 arena: 4.91e9 elements
+    (19.65 GB), past 2^31, one row dead and NaN; two launches bit-identical;
+    the plain version at 1e-5."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    rows = torch.randn((4, P_MOE), generator=gen, device=cuda_device)
+    w = torch.rand((4,), generator=gen, device=cuda_device) + 0.05
+    m = torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda_device)
+    rows[1] = float("nan")
+    got = tops.masked_fedavg(rows, w, m)
+    again = tops.masked_fedavg(rows, w, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = tfed.masked_fedavg_torch(rows, w, m)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5 + 1e-5 * float(want.abs().max())
+
+
+_FAMILIES = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "mamba2-780m", "zamba2-1.2b",
+             "whisper-large-v3")
+
+
+def _family_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)))
+             for k in ("tokens", "labels")}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.encoder_seq_len, cfg.frontend_dim)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_family_forward_on_the_card_matches_the_host(cuda_device, arch):
+    """Each new family's reduced configuration in f32 (TF32 off): logits and
+    ``lm_loss`` (the MoE aux and MTP terms in it) on the card against the
+    host at rtol 1e-4 / atol 1e-5, on weights from one host seed."""
+    from repro_torch.configs import get_reduced
+
+    full_f32()
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = _family_inputs(cfg, 1)
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    card_batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    with torch.no_grad():
+        want = transformer.forward(host, batch["tokens"], cfg, frames=batch.get("frames"))[0]
+        got = transformer.forward(card, card_batch["tokens"], cfg,
+                                  frames=card_batch.get("frames"))[0]
+        want_loss = transformer.lm_loss(host, batch, cfg)
+        got_loss = transformer.lm_loss(card, card_batch, cfg)
+    V = cfg.vocab_size
+    np.testing.assert_allclose(got[..., :V].cpu().numpy(), want[..., :V].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-4, atol=1e-5)
+
+
+def _layer_case(name, device):
+    """(function, inputs on ``device``) for one layer at a reduced size."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 37, 256), generator=gen)
+    if name == "apply_moe_dense":
+        cfg = dataclasses.replace(get_reduced("qwen2-moe-a2.7b"), dtype=torch.float32)
+        p = layers.init_moe(gen, cfg)
+        return (lambda p_, x_: layers.apply_moe_dense(p_, x_, cfg)), (p, x)
+    if name == "apply_mla":
+        cfg = dataclasses.replace(get_reduced("deepseek-v3-671b"), dtype=torch.float32,
+                                  attn_chunk_min_len=16, attn_k_chunk=16)
+        p = layers.init_mla(gen, cfg)
+        pos = torch.arange(37)[None, :]
+        return (lambda p_, x_, pos_: layers.apply_mla(p_, x_, cfg, positions=pos_,
+                                                      mode="causal")[0]), (p, x, pos)
+    B, S, H, Pd, N = 2, 37, 8, 16, 16
+    xh = torch.randn((B, S, H, Pd), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen) - 1.0)
+    A = -torch.linspace(1.0, 16.0, H)
+    Bm, Cm = torch.randn((B, S, N), generator=gen), torch.randn((B, S, N), generator=gen)
+    return (lambda *a: layers._ssd_chunked(*a, 8)), (xh, dt, A, Bm, Cm)
+
+
+@pytest.mark.parametrize("name", ["apply_moe_dense", "apply_mla", "_ssd_chunked"])
+def test_h2_h3_layers_on_the_card_match_the_host(cuda_device, name):
+    """The dense MoE (every expert on every token), MLA through the chunked
+    attention (37 keys in chunks of 16) and the chunked SSD (37 steps in
+    chunks of 8, a padded tail), f32 with TF32 off, card against host at
+    rtol 1e-4 and atol 1e-5 of the output's largest magnitude: the
+    reference's init draws the stacked experts at σ = 1/sqrt(E) (its
+    ``fan_in`` is the leading axis), so the MoE's outputs reach some
+    hundreds, and an output near 0 is a difference of such terms."""
+    full_f32()
+    fn, args = _layer_case(name, "cpu")
+    want = fn(*args)
+    got = fn(*tree_map(lambda t: t.to(cuda_device), list(args)))
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        atol = 1e-5 * max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4, atol=atol)

@@ -16,11 +16,15 @@ held to the reference test's own claim, a falling eval loss.  One
 round on the int8 uplink into the int8 arena holds at the int8 bar: every
 coordinate within one quantization step of its group plus 1e-5, fewer than
 0.1% beyond rtol 1e-4 / atol 1e-5 (an int8 code may flip by one where the
-sums differ).  The launcher trains a reduced dense arch on the host and
-refuses every other family, naming the port's slice that owes it.
+sums differ).  The reduced MoE families run the same federation at the
+same bars, reduced qwen2-moe for its first round: after it a near-tied
+route flips (``_EXACT_ROUNDS``).  The launcher trains a reduced arch of every family on the host;
+whisper, which it gives no audio frames, fails the reference's assertion as
+the reference's launcher does.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -122,13 +126,61 @@ def test_launcher_trains_a_reduced_dense_arch_on_the_host():
     assert driver.controller.arena.buffer.shape[1] == tpack.round_up(n, 1024)
 
 
-@pytest.mark.parametrize("arch,owed", [
-    ("qwen2-moe-a2.7b", "H-2"), ("deepseek-v3-671b", "H-2"), ("zamba2-1.2b", "H-3"),
-    ("mamba2-780m", "H-3"), ("whisper-large-v3", "H-3"),
-])
-def test_launcher_refuses_the_other_families(arch, owed):
-    with pytest.raises(NotImplementedError, match=f"slice {owed}"):
-        ttrain.main(["--arch", arch, "--reduced", "--device", "cpu"])
+# Rounds held at the bar.  Reduced qwen2-moe's router (σ 0.02 over 4
+# experts) leaves some of the federation's ~40,000 token routes a round on
+# near-ties, where a last-ulp difference picks another expert: the port's
+# model leaves the reference's by 2.2e-3 in round 2 (3.3e-7 in round 1), and
+# the reference started from weights one ulp away leaves itself by 2.2e-3 in
+# round 3.  Past its exact rounds the federation is held to the reference's
+# eval loss within 1% and a falling loss (ROADMAP.md §3).
+_EXACT_ROUNDS = {"qwen2-moe-a2.7b": 1, "deepseek-v3-671b": 3}
+
+
+@pytest.mark.parametrize("arch", sorted(_EXACT_ROUNDS))
+def test_moe_lm_federation_matches_reference(arch):
+    """The MoE families (deepseek-v3 with MLA, a leading dense layer and the
+    MTP head) through the same 3-round federation, at the same bars for
+    their exact rounds."""
+    jc, tc, tinit = _federations(arch)
+    jbufs, jloss = _rounds(jc, 3)
+    tbufs, tloss = _rounds(tc, 3)
+    exact = _EXACT_ROUNDS[arch]
+    for r, (got, want) in enumerate(zip(tbufs[:exact], jbufs)):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"round {r}")
+    np.testing.assert_allclose(tloss[:exact], jloss[:exact], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-2)
+    assert tloss[-1] < tloss[0], tloss
+    assert not np.allclose(tbufs[-1], np.asarray(tpack.pack_numeric(tinit)))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b", "mamba2-780m",
+                                  "zamba2-1.2b"])
+def test_launcher_trains_each_new_family(arch):
+    """MoE, MLA with MTP, Mamba2 and the hybrid train through
+    ``launch/train.py --arch ... --reduced`` on the host."""
+    driver, history = ttrain.main(["--arch", arch, "--reduced", "--device", "cpu",
+                                   "--learners", "2", "--rounds", "2", "--local-steps", "2"])
+    assert len(history) == 2
+    losses = [h.metrics["eval_loss"] for h in history]
+    assert np.isfinite(losses).all(), losses
+    assert driver.controller.telemetry.value("channel.upload_messages") == 4
+    n = tpack.num_params(driver.controller.global_params)
+    abstract = jtf.abstract_params(jget_reduced(arch))
+    assert n == sum(math.prod(x.shape) for x in jax.tree_util.tree_leaves(abstract))
+    assert driver.controller.arena.buffer.shape[1] == tpack.round_up(n, 1024)
+
+
+def test_launcher_whisper_raises_the_references_assertion(monkeypatch):
+    """Both launchers give whisper's learners no audio frames, so its first
+    step fails the reference's assertion, with the same message."""
+    msg = "enc-dec model needs frames or memory"
+    with pytest.raises(AssertionError, match=msg):
+        ttrain.main(["--arch", "whisper-large-v3", "--reduced", "--device", "cpu",
+                     "--learners", "2", "--rounds", "1", "--local-steps", "1"])
+    monkeypatch.setattr("sys.argv", ["train", "--arch", "whisper-large-v3", "--reduced",
+                                     "--learners", "2", "--rounds", "1", "--local-steps", "1"])
+    with pytest.raises(AssertionError, match=msg):
+        jtrain.main()
 
 
 def test_launcher_unknown_arch_raises_the_registry_key_error():

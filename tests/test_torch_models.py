@@ -132,16 +132,6 @@ def test_dense_init_distribution():
     assert e.abs().max() <= 0.04 + 1e-7 and abs(float(e.std()) / 0.02 - 0.8796) < 0.02
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b", "zamba2-1.2b",
-                                  "mamba2-780m", "whisper-large-v3"])
-def test_other_families_name_their_slice(arch):
-    owed = "H-2" if arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b") else "H-3"
-    with pytest.raises(NotImplementedError, match=f"slice {owed}"):
-        ttf.check_supported(tget_config(arch))
-    with pytest.raises(NotImplementedError, match=f"slice {owed}"):
-        ttf.init_params(torch.Generator().manual_seed(0), tget_reduced(arch), "cpu")
-
-
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------

@@ -98,3 +98,25 @@ def test_mixed_containers_names_and_order():
     jm = jpack.build_manifest(jax.tree_util.tree_map(jnp.asarray, tree))
     tm = tpack.build_manifest(tpack.tree_from_numpy(tree, "cpu"))
     assert _spec_tuples(tm) == _spec_tuples(jm)
+
+
+def test_tree_walks_leave_no_reference_cycle_holding_leaves():
+    """Flattening, rebuilding and mapping a tree create no reference cycle:
+    a leaf dropped by every caller is freed at once, not when the cyclic
+    garbage collector next runs (a model's tensors kept until then held an
+    extra 4.9 GB row a step at qwen2-moe-a2.7b's full width on the card)."""
+    import gc
+    import weakref
+
+    tree = {"a": [torch.ones(4), (torch.zeros(2), torch.ones(3))], "b": {"c": torch.ones(1)}}
+    gc.collect()
+    gc.disable()
+    try:
+        mapped = ttree.tree_map(lambda t: t * 2, tree)
+        rebuilt = ttree.unflatten(*reversed(ttree.flatten(mapped)))
+        named, _ = ttree.flatten_with_path(rebuilt)
+        refs = [weakref.ref(leaf) for _, leaf in named]
+        del mapped, rebuilt, named
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
