@@ -33,8 +33,8 @@ nothing of the JAX package.  Phases, each printing its own lines:
              of an impossible trim); timings at the main path's shapes (the
              quantize row as the encoder calls it, ``ops.quantize`` on the
              unpadded row, on inputs in rotation), with the device kernels
-             and device time the profiler sees per call and the host time
-             per call; then the top-k uplink's torch ops (no hand kernel:
+             and device time the profiler sees per call (dequantize's too)
+             and the host time per call; then the top-k uplink's torch ops (no hand kernel:
              the reference's are XLA ops): a full-width delta row with
              planted ties, ±0 and a negative and a positive NaN gives
              byte-identical ``TopkUploadCodec(k=158,976)`` wires on the card
@@ -59,11 +59,12 @@ nothing of the JAX package.  Phases, each printing its own lines:
              (every coordinate within one quantization step of its group
              plus 1e-5, fewer than 0.1% beyond rtol 1e-4 / atol 1e-5: an
              int8 code may flip by one where the sums differ); then a
-             byzantine federation (16 learners, fault seed 7, ``scale`` and
-             ``sign_flip`` adversaries, one dispatch worker so arrival order
-             is fixed) under ``trimmed_mean`` and ``median`` (global buffer
-             rtol 1e-4 / atol 1e-5; the adversarial, clipped, rejected and
-             quarantine counters equal); then the protocols beside sync, one
+             byzantine federation (16 learners, 3 rounds, fault seed 7,
+             ``scale`` and ``sign_flip`` adversaries, one dispatch worker so
+             arrival order is fixed) under ``trimmed_mean`` and ``median``
+             (global buffer rtol 1e-4 / atol 1e-5; the adversarial, clipped,
+             rejected and quarantine counters equal, and a learner
+             quarantined on the card); then the protocols beside sync, one
              dispatch worker, no wall-clock timer: async on the f32 arena and
              on the stack store, FedBuff (K = 3 of 4) on the int8 arena with
              the int8 codec (the int8 bar), deadline cohorts and reputation
@@ -99,7 +100,13 @@ nothing of the JAX package.  Phases, each printing its own lines:
              forward and loss on 2 x 64 tokens (same bar), and a 3-round
              reduced qwen2-moe federation (its first round at the same bar,
              the eval loss within 1% and falling: past it a near-tied route
-             may take another expert on one device);
+             may take another expert on one device); then decoding with a
+             cache: the reduced gemma3-4b, mamba2-780m, zamba2-1.2b,
+             deepseek-v3-671b, qwen3-14b, whisper-large-v3 and
+             qwen2-moe-a2.7b (the reference's ``test_decode_matches_prefill``)
+             over 12 positions, and gemma3 over 40 (its 16-slot rings wrap
+             twice), every step's logits card against host (same bar) and the
+             card's decode against its prefill at the reference's 2e-3;
 5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100,
              fourteen legs and a diagnostic, then two fedlm-100m legs, each
              reached as users reach it, with
@@ -114,7 +121,8 @@ nothing of the JAX package.  Phases, each printing its own lines:
              as the reference's adversarial arm builds it; the
              sorting-network kernel once per round); ``median``
              (``FederationEnv(aggregation_rule="median")``, faultless;
-             ``torch.sort``) — arena at 3 rounds, the other five at 2;
+             ``torch.sort``) — arena at 3 rounds, stack and trimmed_mean
+             at 2, int8_arena, int8_wire and median at 1;
              ``semi_sync``
              (``launch/train.main --protocol semi_sync``, 2 rounds; round
              2's steps checked against the profiles); ``async``
@@ -130,7 +138,7 @@ nothing of the JAX package.  Phases, each printing its own lines:
              ``Controller`` with ``DeadlineCohortProtocol`` and wall-clock
              timers at half the arena leg's median ``train_round_s`` and
              eight dispatch workers (a round's uploads come in waves), on a
-             ``FaultyChannel`` losing and duplicating uploads, 3 rounds;
+             ``FaultyChannel`` losing and duplicating uploads, 2 rounds;
              the lost and duplicated counts equal the injector's fates for
              the dispatched pairs, the deadline fired, every late upload
              folded into the next round's reduce); ``resume`` (``Driver``
@@ -142,7 +150,7 @@ nothing of the JAX package.  Phases, each printing its own lines:
              to what was saved, and each round's global model bit-identical
              to the arena leg's; save and restore seconds and the
              checkpoint's bytes printed); ``secure`` (``launch/train.main
-             --secure``, 2 rounds: each round's masked aggregate
+             --secure``, 1 round: the round's masked aggregate
              bit-identical to the unmasked wrapping int32 sum of
              ``encode_fixed(ŵ_i·row_i)`` over the same arena rows, and
              within N/(2·2^16) + 1e-6 of kernel 1's FedAvg of them);
@@ -153,7 +161,7 @@ nothing of the JAX package.  Phases, each printing its own lines:
              kernel, about 32x fewer resident bytes than the arena leg, each
              round's model change within 1e-6 of its f64 scatter of the
              arena's values); ``topk_densify_int8`` (int8 values of group 64
-             densified into the int8 arena, 2 rounds: 804,816 bytes a
+             densified into the int8 arena, 1 round: 804,816 bytes a
              learner, kernel 3 on every upload and kernel 5 a round);
              ``lm_arena`` (``launch/train.main --arch fedlm-100m``, the
              73,937,664-parameter dense decoder LM, 32 learners of 64
@@ -163,7 +171,7 @@ nothing of the JAX package.  Phases, each printing its own lines:
              295,751,680 upload bytes a learner into the (32, 73,937,920)
              f32 arena, kernel 1 a round); ``lm_int8_arena`` (the same
              federation through ``Driver``/``FederationEnv(upload_codec=
-             "int8", arena_dtype="int8")``, 2 rounds: 75,096,272 bytes a
+             "int8", arena_dtype="int8")``, 1 round: 75,096,272 bytes a
              learner, kernel 3 on every upload, kernel 5 a round, about
              3.9x fewer resident bytes); ``lm_moe_arena`` (qwen2-moe-a2.7b
              at its published widths, its depth cut from 24 layers to 1:
@@ -179,7 +187,24 @@ nothing of the JAX package.  Phases, each printing its own lines:
              mamba2-780m, zamba2-1.2b and whisper-large-v3 (batch 2 with
              1500 frames), each with its params against the reference's
              count, a finite loss and gradients, its step seconds and peak
-             memory.  After the
+             memory.  Then the ``serve`` leg: gemma3-4b at full width and
+             all 34 layers (3,879,925,248 params), its weights pushed to 4
+             replicas with int8 echoes (``launch/serve.push_to_replicas``:
+             kernel 3 on each echo, kernel 4 on the one the server decodes),
+             then ``launch/serve.serve`` at batch 4 from 1024-token prompts
+             for 32 tokens into a bf16 cache (every generated position on a
+             wrapped ring), with the push's seconds and wire bytes, the
+             prefill and decode seconds, tokens/s and peak memory; then
+             kernels 3 and 4 on the pushed 3.88e9-element row, bit-identical
+             to their plain versions on windows at its start, across element
+             2^31 and at its tail, and timed there beside their bounds.  Then
+             the ``decode_families`` line: deepseek-v3-671b (one layer),
+             mamba2-780m, zamba2-1.2b, whisper-large-v3 (its encoder over
+             (4, 1500, 1280) frames) and qwen2-moe-a2.7b (one layer) served
+             at full width, batch 4, 64 + 16 tokens in bf16: tokens/s, peak
+             memory, and the f32 decode's logits against one prefill over
+             the 80 tokens served within 1e-4 of the logits' scale (a bf16
+             cache, the control, misses that bar).  After the
              arena leg, the ``naive`` line: the paper's baseline,
              ``core/naive.naive_aggregate`` (host float64, tensor by tensor,
              learner by learner) over the arena's 32 uploads, timed against
@@ -221,15 +246,29 @@ P_STACK = 10_174_081  # housing-mlp-10m params: the stack leg's unpadded rows
 N_MAIN = 32
 SIZE_MAIN = "10m"  # housing-mlp-10m
 GROUP = 256
-# Rounds per round-based leg.  The stack, int8_wire, int8_arena,
-# trimmed_mean and median legs run 2 rounds (two is what keeps a lineage of
-# two models per learner in the stack leg and overwrites every arena row
-# once), so the legs stay inside 600 s of command time; every leg keeps its
-# full width.  ``deadline_32`` is a one-round diagnostic.
-LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 2, "int8_wire": 2, "trimmed_mean": 2,
-              "median": 2, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 3,
-              "resume": 2, "secure": 2, "topk_direct": 2, "topk_densify_int8": 2,
-              "lm_arena": 2, "lm_int8_arena": 2, "lm_moe_arena": 2}
+# The plain versions that take milliseconds a call (the trimmed mean's sort,
+# the int8 reduce's dequantize, the LM and MoE arenas) are timed over 5
+# samples of 2 calls, not their kernels' 20 of 10 (or 10 of 5).
+PLAIN_DEPTH = (5, 2)
+# Rounds per round-based leg; every leg keeps its full width.  The stack
+# leg's 2 rounds keep a lineage of two models per learner, semi_sync's
+# second round is the one sized from measured profiles, trimmed_mean's
+# admission screen clips only after its warm-up, resume compares its 2
+# rounds with the arena leg's, topk_direct's second round applies the
+# error-feedback residual, deadline_faults' second folds the first's late
+# uploads, and lm_arena's and lm_moe_arena's eval loss must fall after a
+# round trained from the aggregate.  int8_arena, int8_wire, median, secure,
+# topk_densify_int8 and lm_int8_arena run one round since the serve leg and
+# the decode lines came in (the host-bound legs ran up to 28% slower on one
+# H100 machine than on another, and the script must stay inside its time
+# limit on both): tools/compare_smoke_legs.py finds each of them launching
+# the same kernels and setting the same counters per round at 1 round as at
+# 2.  The arena leg keeps its 3 rounds and deadline_faults runs 2.
+# ``deadline_32`` is a one-round diagnostic.
+LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 1, "int8_wire": 1, "trimmed_mean": 2,
+              "median": 1, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 2,
+              "resume": 2, "secure": 1, "topk_direct": 2, "topk_densify_int8": 1,
+              "lm_arena": 2, "lm_int8_arena": 1, "lm_moe_arena": 2}
 ASYNC_UPDATES = 32  # the async leg's total_updates (one per learner)
 FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
 # The deadline_faults leg's dispatch workers.  With 32 (the default, one per
@@ -268,6 +307,29 @@ MOE_WORKERS = 1
 # at full width is 11.3e9 params, which one card cannot train.
 FAMILY_PARAMS = {"deepseek-v3-671b": 3_123_113_984, "mamba2-780m": 780_382_464,
                  "zamba2-1.2b": 1_016_967_168, "whisper-large-v3": 1_603_507_200}
+FAMILY_STEPS = 2  # timed steps of the families line, after one warm-up
+# The decode checks: the reduced families of the reference's
+# test_decode_matches_prefill.
+DECODE_ARCHS = ("gemma3-4b", "mamba2-780m", "zamba2-1.2b", "deepseek-v3-671b", "qwen3-14b",
+                "whisper-large-v3", "qwen2-moe-a2.7b")
+# The serve leg: the reference launcher's default arch at full width, served
+# at batch 4 from a 1024-token prompt (its sliding layers' rings full) for
+# 32 more tokens, after pushing its weights to 4 replicas with int8 echoes.
+SERVE_ARCH = "gemma3-4b"
+SERVE_PARAMS = 3_879_925_248
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_REPLICAS = 4, 1024, 32, 4
+# The decode_families line's bar on the f32 decode against its prefill, times
+# the largest |logit|.  On an H100 at full width the gaps read 5.0e-6 to
+# 2.3e-5 over 16 positions, on logits of 3.8 to 4.7; on the host the reduced
+# families' bf16-cache control sits 12-35x above 1e-4 of their scale and
+# their f32 gap about 100x below it.
+DECODE_BAR = 1e-4
+# The decode_families line: each other family's full-width params (the two
+# MoE archs at one layer: deepseek-v3's first layer is dense, qwen2-moe's
+# routed).
+DECODE_FAMILY_PARAMS = {"deepseek-v3-671b": 3_123_113_984, "mamba2-780m": 780_382_464,
+                        "zamba2-1.2b": 1_016_967_168, "whisper-large-v3": 1_603_507_200,
+                        "qwen2-moe-a2.7b": 1_228_025_856}
 TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
 BYZANTINE = dict(seed=7, adversarial_fraction=0.15, adversarial_fates=("scale", "sign_flip"))
 BYZ_COUNTERS = ("engine.faults.adversarial.scale", "engine.faults.adversarial.sign_flip",
@@ -380,6 +442,9 @@ def main() -> None:
         _expect(on_card["engine.faults.adversarial.scale"] > 0
                 and on_card["engine.faults.adversarial.sign_flip"] > 0,
                 f"check byzantine {rule}: no adversarial upload in {on_card}")
+        # Two rounds quarantine no learner yet; the third quarantines one.
+        _expect(on_card["engine.quarantine.entered"] > 0,
+                f"check byzantine {rule}: no learner quarantined in {on_card}")
         print(json.dumps({"phase": "check", "byzantine": rule, "counters": on_card}),
               flush=True)
     # The continuous and fault-enacting protocols: one dispatch worker fixes
@@ -457,6 +522,7 @@ def main() -> None:
                                              1e-4, atol=1e-5, what=f"check optimizer {name}")
     check_lm(train, dev, checks)
     check_families(train, dev, checks)
+    check_decode(dev, checks)
     print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     del d_gpu, d_cpu, c_gpu, c_cpu
@@ -653,7 +719,7 @@ def main() -> None:
                               "arena_over_topk_bytes_resident": shrink,
                               "residual_norm": tel.value("learner.residual_norm")}), flush=True)
         if leg.startswith("lm_"):
-            check_lm_leg(leg, c, resident)
+            check_lm_leg(leg, c, resident, eval_loss[leg])
         if leg == "semi_sync":
             check_semi_sync(c, first_step_s)
         if leg == "async":
@@ -707,6 +773,9 @@ def main() -> None:
         torch.cuda.empty_cache()
     print(json.dumps({"phase": "main", "eval_loss_by_round": eval_loss}), flush=True)
     families_line(dev)
+    for name, v in serve_leg(dev, counters, card).items():
+        launches[name] += v
+    decode_families_line(dev, card)
 
     if FAILURES:
         sys.exit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
@@ -1492,10 +1561,12 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def _timed(name: str, kern, plain, library, nbytes: float, flops: float, shape,
-           samples: int = 20, inner: int = 10) -> dict:
-    """Interleaved (plain, kernel, kernel, plain) so drift hits both alike."""
+           samples: int = 20, inner: int = 10, plain_depth: tuple[int, int] | None = None) -> dict:
+    """Interleaved (plain, kernel, kernel, plain) so drift hits both alike;
+    the plain version over ``plain_depth`` (samples, calls) where given."""
+    depth = {plain: plain_depth or (samples, inner), kern: (samples, inner)}
     t_plain_a, t_kern_a, t_kern_b, t_plain_b = (
-        _time_ms(f, samples, inner) for f in (plain, kern, kern, plain))
+        _time_ms(f, *depth[f]) for f in (plain, kern, kern, plain))
     t_lib = _time_ms(library, samples, inner) if library is not None else None
     bound_ms, bound_by = _bound(nbytes, flops)
     print(json.dumps({"phase": "kernels", "timed": name, "shape": shape,
@@ -1539,8 +1610,34 @@ def _count_device_kernels(name: str, fn, shape, calls: int = 10,
     print(json.dumps({"phase": "kernels", "diagnostic": f"{name} device kernels per call",
                       "shape": shape, "per_call": total / calls if total else None,
                       "device_us_per_call": device_us / calls if total else None,
+                      "device_us_per_kernel": device_us / total if total else None,
                       "kernels": names}), flush=True)
     return names
+
+
+def _device_body_ms(what: str, wrapper, fn, calls: int = 3) -> list[float]:
+    """The device time of each of ``calls`` calls of ``fn``'s one kernel,
+    read on the timeline with CUDA events and without the wrapper's host
+    time: a ``torch.cuda._sleep`` of about 2 ms ahead of the start event
+    keeps the stream busy while the host runs the wrapper, so the start event
+    fires just before the kernel does.  Records a failure unless
+    ``wrapper``'s launch count rose by one a call."""
+    fn()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    out = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    _expect(wrapper.launches - before == calls,
+            f"{what}: {wrapper.launches - before} launches in {calls} calls")
+    return out
 
 
 def _one_kernel_a_call(what: str, names: dict[str, int], kernel: str, calls: int) -> None:
@@ -1661,6 +1758,8 @@ def time_int8_kernels(kq, kfed, kfu, dev, errs: dict) -> dict:
                                p + 4 * groups + 4 * p, p, [p])
     print(json.dumps({"phase": "kernels", "diagnostic": "dequantize_cuda host us per call",
                       "shape": [p], "host_us": _host_us(kern)}), flush=True)
+    _one_kernel_a_call("dequantize_cuda", _count_device_kernels("dequantize", kern, [p], calls=20),
+                       "dequantize_kernel", 20)
     del qs, qg, turn, kern
     aq, ascale, w = _q8_inputs(N_MAIN, p, gen, dev)
     m = torch.ones((N_MAIN,), device=dev)
@@ -1674,7 +1773,8 @@ def time_int8_kernels(kq, kfed, kfu, dev, errs: dict) -> dict:
             "masked_fedavg_q8 differs from masked_fedavg on the dequantized timed rows")
     out["masked_fedavg_q8"] = _timed(
         "masked_fedavg_q8", kern, plain, None,
-        N_MAIN * p + 4 * N_MAIN * groups + 4 * p + 8 * N_MAIN, 3 * N_MAIN * p, [N_MAIN, p])
+        N_MAIN * p + 4 * N_MAIN * groups + 4 * p + 8 * N_MAIN, 3 * N_MAIN * p, [N_MAIN, p],
+        plain_depth=PLAIN_DEPTH)
     _one_kernel_a_call("masked_fedavg_q8", _count_device_kernels("masked_fedavg_q8", kern,
                                                                  [N_MAIN, p]),
                        "fedavg_kernel", 10)
@@ -1834,7 +1934,7 @@ def time_trimmed_mean(krob, dev, errs: dict) -> dict:
         out[trim_k] = _timed(f"masked_trimmed_mean trim_k={trim_k}", kern, plain, None,
                              N_MAIN * P_MAIN * 4 + 4 * P_MAIN + 4 * N_MAIN,
                              (2 * _sorting_network_size(N_MAIN) + N_MAIN) * P_MAIN,
-                             [N_MAIN, P_MAIN])
+                             [N_MAIN, P_MAIN], plain_depth=PLAIN_DEPTH)
         names = _count_device_kernels(f"masked_trimmed_mean trim_k={trim_k}", kern,
                                       [N_MAIN, P_MAIN], calls=20, windows=5)
         _one_kernel_a_call("masked_trimmed_mean", names, "network_kernel", 20)
@@ -2176,7 +2276,7 @@ def time_lm_kernels(kq, kfed, kfu, dev, errs: dict, card: str) -> None:
     out["masked_fedavg"] = _timed(
         "masked_fedavg", kern, lambda: kfed.masked_fedavg_torch(rows, w, live),
         lambda: torch.mv(rows.T, w_hat), n * p * 4 + 4 * p + 8 * n, 2 * n * p, shape,
-        samples=10, inner=5)
+        samples=10, inner=5, plain_depth=PLAIN_DEPTH)
     out["masked_fedavg"]["max_abs_err"] = err
     _one_kernel_a_call("masked_fedavg LM", _count_device_kernels("masked_fedavg LM", kern, shape),
                        "fedavg_kernel", 10)
@@ -2219,7 +2319,8 @@ def time_lm_kernels(kq, kfed, kfu, dev, errs: dict, card: str) -> None:
         kern(), plain(), 2e-5, what="masked_fedavg_q8 LM timed"))
     out["masked_fedavg_q8"] = _timed(
         "masked_fedavg_q8", kern, plain, None,
-        n * p + 4 * n * groups + 4 * p + 8 * n, 3 * n * p, shape, samples=10, inner=5)
+        n * p + 4 * n * groups + 4 * p + 8 * n, 3 * n * p, shape, samples=10, inner=5,
+        plain_depth=PLAIN_DEPTH)
     out["masked_fedavg_q8"]["max_abs_err"] = err
     _one_kernel_a_call("masked_fedavg_q8 LM",
                        _count_device_kernels("masked_fedavg_q8 LM", kern, shape), "fedavg_kernel", 10)
@@ -2324,12 +2425,13 @@ def run_lm_federation(train, dev, rounds: int, **env):
     return driver, driver.run()
 
 
-def check_lm_leg(leg: str, c, resident: dict) -> None:
+def check_lm_leg(leg: str, c, resident: dict, eval_loss: list[float]) -> None:
     """The LM legs' wire and arena: an upload per learner a round of the
     padded f32 row (295,751,680 B at fedlm-100m, 4,912,103,424 B at the
     one-layer qwen2-moe) or its int8 wire (75,096,272 B), every int8 upload
     landed directly and one fused reduce a round, the int8 arena about 3.9x
-    smaller; the MoE leg's manifest holds 1,228,025,856 params."""
+    smaller; the MoE leg's manifest holds 1,228,025,856 params; the eval
+    loss falls from the first round to the last on a leg of 2 rounds."""
     from repro_torch.core import packing
 
     tel = c.telemetry
@@ -2345,6 +2447,8 @@ def check_lm_leg(leg: str, c, resident: dict) -> None:
     assert tel.value("controller.aggregations.fused_q8") == (LEG_ROUNDS[leg] if int8 else 0)
     params = packing.num_params(c.global_params)
     assert params == (P_MOE if moe else P_LM_PARAMS), params
+    _expect(len(eval_loss) == 1 or eval_loss[-1] < eval_loss[0],
+            f"{leg}: eval loss {eval_loss} did not fall")
     line = {"phase": f"main.{leg}", "upload_bytes_per_upload": up // uploads,
             "bytes_resident": resident[leg], "dispatch_workers": c.engine._executor._max_workers,
             "params": params}
@@ -2394,7 +2498,7 @@ def time_moe_kernel(kfed, dev, errs: dict, card: str) -> None:
     w_hat = kfed.masked_normalize(w, live)
     out = _timed("masked_fedavg", kern, lambda: kfed.masked_fedavg_torch(rows, w, live),
                  lambda: torch.mv(rows.T, w_hat), n * p * 4 + 4 * p + 8 * n, 2 * n * p,
-                 [n, p], samples=10, inner=5)
+                 [n, p], samples=10, inner=5, plain_depth=PLAIN_DEPTH)
     out["max_abs_err"] = err
     print(json.dumps({"phase": "kernels", "moe_shape": out, "card": card}), flush=True)
     del rows, kern
@@ -2514,7 +2618,7 @@ def families_line(dev) -> None:
     encoder's naive f32 scores are B x 20 x 1500^2 x 4 bytes a layer over 32
     layers, 92 GB at batch 16).  Each: the manifest's total against the
     reference's, the loss at init and its gradients finite, the median step
-    seconds of 3 after one warm-up, and the peak device memory."""
+    seconds of ``FAMILY_STEPS`` after one warm-up, and the peak device memory."""
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.core import packing
@@ -2540,7 +2644,7 @@ def families_line(dev) -> None:
         del grads
         step = make_train_step(cfg, optim.sgd(LR))
         seconds = []
-        for i in range(4):
+        for i in range(1 + FAMILY_STEPS):
             torch.cuda.synchronize()
             ts = time.perf_counter()
             params, _, step_loss = step(params, (), batch)
@@ -2549,15 +2653,295 @@ def families_line(dev) -> None:
                 seconds.append(time.perf_counter() - ts)
         assert math.isfinite(float(step_loss)), (arch, float(step_loss))
         out[arch] = {"params": total, "loss_at_init": float(loss),
-                     "loss_after_4_steps": float(step_loss), "grads_finite": finite,
-                     "batch": list(batch["tokens"].shape),
-                     "step_s_median_of_3": statistics.median(seconds), "step_s": seconds,
+                     f"loss_after_{1 + FAMILY_STEPS}_steps": float(step_loss),
+                     "grads_finite": finite, "batch": list(batch["tokens"].shape),
+                     f"step_s_median_of_{FAMILY_STEPS}": statistics.median(seconds),
+                     "step_s": seconds,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "seconds": time.perf_counter() - t0}
         del params, batch, step
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"phase": "main.families", "families": out}), flush=True)
+
+
+def _decode_logits(params, cfg, tokens: torch.Tensor, max_len: int, memory, cache_dtype):
+    """Every step's logits ``(B, S, Vp)`` of ``transformer.decode_step`` fed
+    ``tokens`` one position at a time, into a zeroed cache of ``max_len``
+    positions on the tokens' device."""
+    from repro_torch.models import kvcache, transformer
+
+    caches = kvcache.init_cache(cfg, tokens.shape[0], max_len, dtype=cache_dtype,
+                                device=tokens.device)
+    return torch.cat([transformer.decode_step(params, tokens[:, t:t + 1], caches, t, cfg,
+                                              memory=memory)[0]
+                      for t in range(tokens.shape[1])], dim=1)
+
+
+def check_decode(dev, checks: dict) -> None:
+    """Decoding on the card against the host, f32 with TF32 off: the seven
+    reduced families of the reference's ``test_decode_matches_prefill``
+    (gemma3-4b, mamba2-780m, zamba2-1.2b, deepseek-v3-671b, qwen3-14b,
+    whisper-large-v3, qwen2-moe-a2.7b) over 12 positions into a 16-position
+    f32 cache, and reduced gemma3 over 40 positions (its 16-slot sliding
+    rings wrap at 16 and 32), on weights from one host seed: every step's
+    logits at rtol 1e-4 / atol 1e-5; and the card's decode against the card's
+    prefill ``forward`` over the same tokens at the reference's 2e-3."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    host = torch.device("cpu")
+    for arch, S, max_len in [(a, 12, 16) for a in DECODE_ARCHS] + [("gemma3-4b", 40, 40)]:
+        cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+        params = transformer.init_params(torch.Generator().manual_seed(0), cfg, host)
+        batch = _family_batch(cfg, 2, S, host, 4)
+        card = tree_map(lambda t: t.to(dev), params)
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            mem = mem_card = None
+            if cfg.is_encoder_decoder:
+                mem = transformer.encode(params, batch["frames"], cfg)
+                mem_card = transformer.encode(card, card_batch["frames"], cfg)
+            want = _decode_logits(params, cfg, batch["tokens"], max_len, mem, torch.float32)
+            got = _decode_logits(card, cfg, card_batch["tokens"], max_len, mem_card,
+                                 torch.float32)
+            prefill = transformer.forward(card, card_batch["tokens"], cfg, memory=mem_card)[0]
+        V = cfg.vocab_size
+        name = f"decode_{arch}" + ("_40" if S == 40 else "")
+        checks[name] = _close(got[..., :V].cpu(), want[..., :V], 1e-4, atol=1e-5,
+                              what=f"check {name} card vs host")
+        gap = float((got[..., :V] - prefill[..., :V]).abs().max())
+        _expect(gap < 2e-3, f"check {name}: decode against prefill on the card {gap} >= 2e-3")
+        print(json.dumps({"phase": "check", "decode": arch, "positions": S,
+                          "cache_positions": max_len, "max_abs_err_vs_host": checks[name],
+                          "decode_vs_prefill_on_card": gap}), flush=True)
+
+
+def serve_leg(dev, counters: dict, card: str) -> dict:
+    """The serve leg: gemma3-4b at full width and all 34 layers (29 sliding
+    of window 1024, 5 global; 3,879,925,248 params, f32 weights, bf16
+    compute), initialized on the card.  With every launch count at 0:
+    ``launch/serve.push_to_replicas(params, 4, replica_upload="int8")`` (one
+    serialization down, 4 int8 echoes up, kernel 3 on each and kernel 4 on
+    the server's decode of one), then ``launch/serve.serve`` at batch 4 with
+    a 1024-token prompt and 32 generated tokens into a bf16 cache (every
+    generated position on a wrapped ring).  Then, outside the counted
+    window, kernels 3 and 4 on the pushed row (3.88e9 elements, past 2^31)
+    against their plain versions (:func:`check_serving_row`).  Returns the
+    leg's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import packing
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import kvcache, transformer
+    from repro_torch.models.config import ATTN, SWA, plan_segments
+
+    t_leg = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    kinds = [spec.kind for seg in plan_segments(cfg) for _ in range(seg.repeats)
+             for spec in seg.unit]
+    assert kinds.count(SWA) == 29 and kinds.count(ATTN) == 5 and len(kinds) == 34, kinds
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    n = packing.num_params(params)
+    assert n == SERVE_PARAMS, n
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    init_s = time.perf_counter() - t_leg
+    for fn in counters.values():
+        fn.launches = 0
+    ch, push_s, echo_s = serve_mod.push_to_replicas(params, SERVE_REPLICAS,
+                                                    replica_upload="int8")
+    push_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, prefill_s, decode_s = serve_mod.serve(params, cfg, prompts, SERVE_GEN)
+    counts = {name: fn.launches for name, fn in counters.items()}
+    want = {**dict.fromkeys(counters, 0), "quantize": SERVE_REPLICAS, "dequantize": 1}
+    assert counts == want, (counts, want)
+    in_vocab = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    assert in_vocab and tuple(tokens.shape) == (SERVE_BATCH, SERVE_GEN), tokens
+    # Where a decode step's time goes: the device kernels and device time of
+    # one step at a wrapped position, beside its wall time in the decode.
+    step = make_serve_step(cfg)
+    caches = kvcache.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device=dev)
+    last, pos = tokens[:, -1:], torch.tensor(SERVE_PROMPT + SERVE_GEN - 1, device=dev)
+    step_kernels = _count_device_kernels(f"{cfg.name} decode step",
+                                         lambda: step(params, caches, last, pos),
+                                         [SERVE_BATCH, 1], calls=3, windows=1)
+    del caches
+    tel = ch.telemetry
+    down, up = tel.value("channel.bytes_moved"), tel.value("channel.upload_bytes")
+    assert down == SERVE_REPLICAS * 4 * n, down
+    assert up == SERVE_REPLICAS * kq.wire_layout(n)[2], up
+    print(json.dumps({
+        "phase": "main.serve", "arch": cfg.name, "layers": len(kinds), "params": n,
+        "cache_bytes": kvcache.cache_bytes(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN),
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
+        "replicas": SERVE_REPLICAS, "push_s": push_s, "echo_s": echo_s,
+        "wire_bytes_down": down, "wire_bytes_up": up, "up_over_down": up / down,
+        "launches": counts, "prefill_s": prefill_s, "decode_s": decode_s,
+        "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s,
+        "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+        "decode_step_ms": decode_s / SERVE_GEN * 1e3,
+        "device_kernels_per_step": sum(step_kernels.values()) / 3,
+        "peak_gb_push": push_peak / 1e9,
+        "peak_gb_serve": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens_in_vocab": in_vocab, "sample": tokens[0, :8].tolist(),
+        "init_s": init_s, "seconds": time.perf_counter() - t_leg, "card": card}), flush=True)
+    del ch, tokens, prompts
+    row = packing.pack_numeric(params)
+    del params
+    check_serving_row(kq, row, card)
+    return counts
+
+
+def _row_windows(n_padded: int) -> list[tuple[int, int]]:
+    """The windows of a quantized row held against the plain version: the
+    first 2^20 values, the 2^21 around element 2^31 and the last 2^20
+    (group-aligned), each a whole number of groups."""
+    tail = (n_padded - 2 ** 20) // GROUP * GROUP
+    return [(0, 2 ** 20), (2 ** 31 - 2 ** 20, 2 ** 31 + 2 ** 20), (tail, n_padded)]
+
+
+def check_serving_row(kq, row: torch.Tensor, card: str) -> None:
+    """Kernels 3 and 4 on the serving row, the pushed gemma3-4b weights
+    (3,879,925,248 f32 values, past 2^31): ``quantize_cuda`` padded to the
+    int8 wire's tile as the encoder pads it, and ``dequantize_cuda`` of its
+    output, each bit-identical to its plain version on the windows of
+    :func:`_row_windows` (the plain version cannot hold the whole row's
+    temporaries; a window's groups are the kernel's, every start being a
+    multiple of 256).  Then each timed (CUDA events, the wrapper call,
+    interleaved plain/kernel/kernel/plain) beside its bytes bound; the plain
+    version runs over the whole row in windows of 2^28 values; dequantize's
+    library call is ``torch.mul`` per group.  Then each kernel's device time
+    alone, read on the timeline with CUDA events (:func:`_device_body_ms`):
+    ``torch.profiler`` records none of these multi-millisecond kernels in
+    some runs (no quantize record in two of four runs, no dequantize record
+    in one), so it is not asked here."""
+    n = row.shape[0]
+    n_padded = kq.wire_layout(n)[0]
+    groups = n_padded // GROUP
+    q, s = kq.quantize_cuda(row, GROUP, n_padded)
+    windows = _row_windows(n_padded)
+    same = []
+    for a, b in windows:
+        pq, ps = kq.quantize_torch(row[a:min(b, n)], GROUP, b - a)
+        same.append(torch.equal(q[a:b], pq) and _same_bits(s[a // GROUP:b // GROUP], ps))
+        _expect(same[-1], f"quantize at the serving row differs in [{a}, {b})")
+    chunk = 2 ** 28
+
+    def plain_quantize():
+        for a in range(0, n_padded, chunk):
+            kq.quantize_torch(row[a:min(a + chunk, n)], GROUP, min(chunk, n_padded - a))
+
+    out = {"quantize": _timed("quantize", lambda: kq.quantize_cuda(row, GROUP, n_padded),
+                              plain_quantize, None, 4 * n + n_padded + 4 * groups, 6 * n, [n],
+                              samples=3, inner=1)}
+    out["quantize"]["device_ms"] = _device_body_ms(
+        "quantize at the serving row", kq.quantize_cuda,
+        lambda: kq.quantize_cuda(row, GROUP, n_padded))
+    del row
+    torch.cuda.empty_cache()
+    deq = kq.dequantize_cuda(q, s, GROUP)
+    for a, b in windows:
+        same.append(_same_bits(deq[a:b], kq.dequantize_torch(q[a:b], s[a // GROUP:b // GROUP],
+                                                             GROUP)))
+        _expect(same[-1], f"dequantize at the serving row differs in [{a}, {b})")
+    del deq
+    torch.cuda.empty_cache()
+
+    def plain_dequantize():
+        for a in range(0, n_padded, chunk):
+            b = min(a + chunk, n_padded)
+            kq.dequantize_torch(q[a:b], s[a // GROUP:b // GROUP], GROUP)
+
+    out["dequantize"] = _timed("dequantize", lambda: kq.dequantize_cuda(q, s, GROUP),
+                               plain_dequantize,
+                               lambda: torch.mul(q.view(groups, GROUP), s[:, None]),
+                               n_padded + 4 * groups + 4 * n_padded, n_padded, [n_padded],
+                               samples=3, inner=1)
+    out["dequantize"]["device_ms"] = _device_body_ms(
+        "dequantize at the serving row", kq.dequantize_cuda,
+        lambda: kq.dequantize_cuda(q, s, GROUP))
+    print(json.dumps({"phase": "main.serve_row", "elements": n, "padded": n_padded,
+                      "windows": windows, "bit_identical": same, "timed": out, "card": card}),
+          flush=True)
+    del q, s
+    torch.cuda.empty_cache()
+
+
+def decode_families_line(dev, card: str) -> None:
+    """One full-width serve on the card for each other family: deepseek-v3
+    at one layer (MLA's absorbed decode), mamba2-780m, zamba2-1.2b,
+    whisper-large-v3 (its encoder over (4, 1500, 1280) frames first) and
+    qwen2-moe-a2.7b at one layer; ``launch/serve.serve`` at batch 4, 64
+    prompt tokens and 16 generated, bf16 compute and cache: decode tokens/s
+    and peak memory.  Then, in f32 compute (TF32 off) on the same weights
+    and the 80 tokens served (the 64 of the prompt, then the 16 generated):
+    every decode step's logits against one prefill ``forward`` over
+    those tokens, within ``DECODE_BAR`` · max |prefill logit|.  As a control
+    that the bar would catch a bf16 cast leaking into the f32 decode, the
+    same decode with a bf16 cache over the first 16 tokens must miss it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import packing
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer
+
+    out = {"allocated_gb_before": torch.cuda.memory_allocated() / 1e9}
+    for arch, want in DECODE_FAMILY_PARAMS.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        if arch in ("deepseek-v3-671b", "qwen2-moe-a2.7b"):
+            cfg = dataclasses.replace(cfg, n_layers=1)
+        params = transformer.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+        total = packing.num_params(params)
+        assert total == want, (arch, total, want)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, 64), device=dev, generator=gen)
+        frames = None
+        if cfg.is_encoder_decoder:
+            frames = torch.randn((SERVE_BATCH, cfg.encoder_seq_len, cfg.frontend_dim),
+                                 device=dev, generator=gen)
+        with torch.no_grad():
+            memory = None if frames is None else transformer.encode(params, frames, cfg)
+        tokens, prefill_s, decode_s = serve_mod.serve(params, cfg, prompts, 16, memory=memory)
+        peak = torch.cuda.max_memory_allocated()
+        in_vocab = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+        assert in_vocab, (arch, tokens)
+        del memory
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        seq = torch.cat([prompts, tokens.to(prompts.dtype)], dim=1)
+        with torch.no_grad():
+            memory = None if frames is None else transformer.encode(params, frames, f32)
+            got = _decode_logits(params, f32, seq, seq.shape[1], memory, torch.float32)
+            control = _decode_logits(params, f32, seq[:, :16], 16, memory, torch.bfloat16)
+            prefill = transformer.forward(params, seq, f32, memory=memory)[0]
+        V = cfg.vocab_size
+        gap = float((got[..., :V] - prefill[..., :V]).abs().max())
+        control_gap = float((control[..., :V] - prefill[:, :16, :V]).abs().max())
+        scale = float(prefill[..., :V].abs().max())
+        bar = DECODE_BAR * scale
+        _expect(math.isfinite(gap) and gap < bar,
+                f"decode_families {arch}: decode against prefill {gap} >= {bar}")
+        _expect(control_gap > bar,
+                f"decode_families {arch}: the bf16-cache control {control_gap} <= {bar}")
+        out[arch] = {"params": total, "batch": SERVE_BATCH, "prompt": 64, "generated": 16,
+                     "prefill_s": prefill_s, "decode_s": decode_s,
+                     "decode_tokens_per_s": SERVE_BATCH * 16 / decode_s,
+                     "peak_gb": peak / 1e9, "peak_gb_with_f32_check":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "f32_positions": seq.shape[1], "f32_decode_vs_prefill_max_abs": gap,
+                     "bf16_cache_control_max_abs": control_gap, "logit_scale": scale,
+                     "bar": bar, "tokens_in_vocab": in_vocab,
+                     "seconds": time.perf_counter() - t0}
+        del params, prompts, frames, memory, tokens, seq, got, control, prefill
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "main.decode_families", "families": out, "card": card}),
+          flush=True)
 
 
 if __name__ == "__main__":

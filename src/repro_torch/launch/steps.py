@@ -1,8 +1,7 @@
-"""Step-function builders: train_step and prefill_step per config.
+"""Step-function builders: train_step, prefill_step and serve_step per config.
 
-The port of ``repro/launch/steps.py`` (``make_serve_step`` is slice H-4).
-Both steps are functions of ``(params, ...)`` over the functional model of
-``models/transformer.py``.
+The port of ``repro/launch/steps.py``.  Each step is a function of
+``(params, ...)`` over the functional model of ``models/transformer.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer
 
-__all__ = ["make_train_step", "make_prefill_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_serve_step"]
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
@@ -41,3 +40,16 @@ def make_prefill_step(cfg: ModelConfig):
         return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``(params, caches, tokens (B, 1), pos, memory=None) -> (next (B, 1)
+    int32, caches)``: one decode step (the caches updated in place), then the
+    greedy next token over the padded vocabulary's logits; of equal maxima
+    the first wins, as in ``jnp.argmax``."""
+
+    def serve_step(params, caches, tokens, pos, memory=None):
+        logits, caches = transformer.decode_step(params, tokens, caches, pos, cfg, memory=memory)
+        return torch.argmax(logits[:, -1, :], dim=-1, keepdim=True).to(torch.int32), caches
+
+    return serve_step

@@ -1,12 +1,11 @@
 """Model building blocks: norms, RoPE, attention (GQA, sliding, cross, MLA),
 MLP, MoE and Mamba2 (SSD).
 
-The port of the train/prefill paths of ``repro/models/layers.py``.  Pure functions
-over parameter dicts of tensors (no ``nn.Module`` state, no in-place writes
-to parameters), so ``torch.func.grad_and_value`` differentiates a loss built
-from them.  Every block has an ``init_*`` (from an explicit
-``torch.Generator``) and an apply function that follows the reference's
-numerics:
+The port of ``repro/models/layers.py``.  Pure functions over parameter dicts
+of tensors (no ``nn.Module`` state, no in-place writes to parameters), so
+``torch.func.grad_and_value`` differentiates a loss built from them.  Every
+block has an ``init_*`` (from an explicit ``torch.Generator``) and an apply
+function that follows the reference's numerics:
 
 * norms take their statistics **and** apply in f32, then cast back;
 * RoPE rotates split halves (not interleaved pairs), angles in f32;
@@ -20,14 +19,24 @@ numerics:
   expert runs on every token, as in the reference's ``apply_moe_dense``;
 * Mamba2's SSD, its causal conv and its gated norm run in f32.
 
+Decode paths take a cache entry (``models/kvcache.py`` defines the layout)
+and one token a step.  Where the reference returns a new cache from each
+``dynamic_update_slice``, the port writes the step's keys and values (MLA's
+latent, Mamba2's conv window and state) into the cache's own tensors with
+``index_copy_``/``copy_`` and returns the same entry: a ``(repeats, ...)``
+leaf passed down as ``leaf[r]`` is a view, so a step costs no copy of the
+cache.  The decode attention is the naive one (one query), its validity
+mask additive ``-1e30`` in f32 over the cache's slots.
+
 Everything here is plain torch arithmetic, as it is jnp in the reference (no
-Pallas kernel there).  Decoding with a cache (KV, MLA latent, SSM state) is
-slice H-4 of the port; the expert-parallel MoE (``apply_moe_ep``, a
-``shard_map``) is slice G.
+Pallas kernel there).  The sequence-sharded decodes (``_flash_decode``,
+MLA's ``shard_map`` decode) and the expert-parallel MoE (``apply_moe_ep``)
+are slice G.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -40,8 +49,6 @@ __all__ = [
     "init_attention", "apply_attention", "init_mla", "apply_mla", "init_mlp", "apply_mlp",
     "init_moe", "moe_aux_loss", "apply_moe_dense", "apply_moe", "init_mamba", "apply_mamba",
 ]
-
-_DECODE = "decoding with a cache is slice H-4 of the port"
 
 _NEG = -1e30  # the reference's additive mask value
 
@@ -112,10 +119,13 @@ def _rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> t
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=64)
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """``1 / theta^(2i/head_dim)`` for ``i < head_dim/2``, f32."""
+    """``1 / theta^(2i/head_dim)`` for ``i < head_dim/2``, f32.  Built once
+    per (head dim, theta, device) and shared, never written: every layer of
+    every step reads the same table, with no host-to-device copy."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -287,19 +297,67 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, mode: str, window: int = 0) -> torch.Ten
     return _sdpa_naive(q, k, v, mask, scale=scale)
 
 
-def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                    mode: str, kv_cache=None,
-                    x_cross: torch.Tensor | None = None) -> tuple[torch.Tensor, None]:
-    """Self-attention over the whole sequence (train and prefill), or
-    cross-attention from ``x`` to ``x_cross`` (whisper's encoder memory: no
-    RoPE, the caller passes ``mode="full"``; query and key lengths differ).
+def _ring_positions(slots: torch.Tensor, pos: torch.Tensor, L: int) -> torch.Tensor:
+    """Absolute position currently stored in each ring-buffer slot.
 
-    ``mode`` is ``"causal"``, ``"sliding"`` or ``"full"``.  Returns
-    ``(y, None)``: the second item is the reference's updated cache, which
-    the train/prefill branch does not produce.
+    The slot for absolute position t is t % L; slot j currently holds the
+    largest t' <= pos with t' % L == j (negative before the ring is full).
     """
-    if kv_cache is not None:
-        raise NotImplementedError(_DECODE)
+    base = pos - torch.remainder(pos, L)
+    cand = base + slots
+    return torch.where(cand <= pos, cand, cand - L)
+
+
+def _decode_mask(L: int, pos: torch.Tensor, ring: bool) -> torch.Tensor:
+    """(1, L) additive f32 mask over a cache's slots at decode position
+    ``pos``: 0 for a written slot the query may see, -1e30 elsewhere.  A ring
+    (a sliding layer whose cache holds exactly its window) sees the slots
+    whose position is less than ``L`` old; a linear cache sees slots up to
+    ``pos``."""
+    kj = torch.arange(L, device=pos.device)
+    if ring:
+        rpos = _ring_positions(kj, pos, L)
+        age = pos - rpos
+        valid = (age >= 0) & (age < L) & (rpos >= 0)
+    else:
+        valid = kj <= pos
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    return torch.where(valid, zero, torch.full((), _NEG, device=pos.device))[None, :]
+
+
+def _step_mask(masks: dict | None, L: int, pos: torch.Tensor, ring: bool) -> torch.Tensor:
+    """:func:`_decode_mask`, built once per ``(L, ring)`` in a decode step's
+    ``masks`` (shared by every layer of the step) or afresh without one."""
+    if masks is None:
+        return _decode_mask(L, pos, ring)
+    if (L, ring) not in masks:
+        masks[L, ring] = _decode_mask(L, pos, ring)
+    return masks[L, ring]
+
+
+def _slot(pos: torch.Tensor) -> torch.Tensor:
+    """A 0-d position as the one-element int64 index ``index_copy_`` takes."""
+    return pos.reshape(1).to(torch.int64)
+
+
+def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
+                    mode: str, kv_cache: dict | None = None,
+                    decode_pos: torch.Tensor | None = None, decode_masks: dict | None = None,
+                    x_cross: torch.Tensor | None = None) -> tuple[torch.Tensor, dict | None]:
+    """Self-attention, or cross-attention from ``x`` to ``x_cross`` (whisper's
+    encoder memory: no RoPE, the caller passes ``mode="full"``; query and key
+    lengths differ).  ``mode`` is ``"causal"``, ``"sliding"`` or ``"full"``.
+
+    Without a cache, attention over the whole sequence (train and prefill).
+    With ``kv_cache`` ``{"k", "v"}`` of ``(B, L, KVH, hd)``, one decode step
+    at the 0-d position ``decode_pos``: this step's key and value go to slot
+    ``pos`` (``pos % L`` in a sliding layer's ring, ``L == sliding_window``),
+    in place, and the query attends to the cache's valid slots (the mask
+    from the step's ``decode_masks`` where given).  Cross-
+    attention with a cache attends to the memory as without one and leaves
+    the cache as it is.  Returns ``(y, kv_cache)``: the cache, updated in
+    place, or ``None`` without one.
+    """
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     n_rep = H // KVH
@@ -310,10 +368,21 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: to
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), cfg, mode=mode,
-                window=cfg.sliding_window)
+    if kv_cache is not None and x_cross is None:
+        pos = torch.as_tensor(decode_pos, device=x.device)
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        L = ck.shape[1]
+        ring = mode == "sliding" and L == cfg.sliding_window
+        slot = _slot(torch.remainder(pos, L) if ring else pos)
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        out = _sdpa_naive(q, _repeat_kv(ck.to(x.dtype), n_rep), _repeat_kv(cv.to(x.dtype), n_rep),
+                          _step_mask(decode_masks, L, pos, ring), scale=1.0 / math.sqrt(hd))
+    else:
+        out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), cfg, mode=mode,
+                    window=cfg.sliding_window)
     out = out.reshape(B, -1, H * hd)
-    return out @ p["wo"].to(out.dtype), None
+    return out @ p["wo"].to(out.dtype), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -359,25 +428,52 @@ def _mla_kv_latent(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.
 
 
 def apply_mla(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-              mode: str, kv_cache=None) -> tuple[torch.Tensor, None]:
-    """Multi-head latent attention, train/prefill: the latent expanded to
-    per-head keys and values, the shared rope key concatenated onto every
-    head's nope key, causal attention at scale ``1/sqrt(nope + rope)`` with
-    value heads of ``v_head_dim``.  ``mode`` is accepted as the reference
-    accepts it; MLA is always causal.  The absorbed decode is slice H-4."""
-    if kv_cache is not None:
-        raise NotImplementedError(_DECODE)
+              mode: str, kv_cache: dict | None = None, decode_pos: torch.Tensor | None = None,
+              decode_masks: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """Multi-head latent attention.  ``mode`` is accepted as the reference
+    accepts it; MLA is always causal.
+
+    Train/prefill: the latent expanded to per-head keys and values, the
+    shared rope key concatenated onto every head's nope key, attention at
+    scale ``1/sqrt(nope + rope)`` with value heads of ``v_head_dim``.
+
+    Decode, with ``kv_cache`` ``{"ckv": (B, L, rkv), "kpe": (B, L, dr)}``: the
+    *absorbed* form.  The step's latent and rope key go to slot ``pos`` in
+    place; the scores are ``(q_nope W_UK)·ckv + q_rope·kpe`` straight from the
+    latent, the read-out ``probs·ckv`` stays in latent space and ``W_UV``
+    expands it.  It rounds differently from the expanded prefill.  Returns
+    ``(y, kv_cache)``.
+    """
     B, S, _ = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rkv = cfg.kv_lora_rank
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c_kv, k_pe = _mla_kv_latent(p, x, cfg, positions)
-    k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(B, S, H, dn)
-    v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(B, S, H, dv)
-    q_eff = torch.cat([q_nope, q_rope], dim=-1)
-    k_eff = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
-    out = _sdpa(q_eff, k_eff, v, cfg, mode="causal").reshape(B, S, H * dv)
-    return out @ p["wo"].to(out.dtype), None
+    if kv_cache is None:
+        k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(B, S, H, dn)
+        v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(B, S, H, dv)
+        q_eff = torch.cat([q_nope, q_rope], dim=-1)
+        k_eff = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+        out = _sdpa(q_eff, k_eff, v, cfg, mode="causal")
+    else:
+        pos = torch.as_tensor(decode_pos, device=x.device)
+        ckv, kpe = kv_cache["ckv"], kv_cache["kpe"]
+        ckv.index_copy_(1, _slot(pos), c_kv.to(ckv.dtype))
+        kpe.index_copy_(1, _slot(pos), k_pe.to(kpe.dtype))
+        wk_b = p["wk_b"].to(x.dtype).reshape(rkv, H, dn)
+        wv_b = p["wv_b"].to(x.dtype).reshape(rkv, H, dv)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, wk_b)
+        ckv_c = ckv.to(x.dtype)
+        scores = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckv_c.float())
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kpe.to(x.dtype).float()))
+        scores = (scores * (1.0 / math.sqrt(dn + dr))
+                  + _step_mask(decode_masks, ckv.shape[1], pos, False))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_c)  # the latent read-out
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b)
+    out = out.reshape(B, S, H * dv)
+    return out @ p["wo"].to(out.dtype), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -588,24 +684,43 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.
 
 
 def apply_mamba(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                cache=None) -> tuple[torch.Tensor, None]:
-    """Mamba2 mixer, train/prefill: in-projection, causal conv, chunked SSD
-    plus the ``D`` skip, the gated RMS norm ``norm(y · silu(z))`` in f32,
-    out-projection.  The one-step recurrence over a cache is slice H-4."""
-    if cache is not None:
-        raise NotImplementedError(_DECODE)
+                cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """Mamba2 mixer: in-projection, causal conv, the SSM plus the ``D`` skip,
+    the gated RMS norm ``norm(y · silu(z))`` in f32, out-projection.
+
+    Train/prefill: the causal conv over the sequence and the chunked SSD.
+    Decode, with ``cache`` ``{"conv": (B, W-1, di+2N), "ssm": (B, H, P, N)}``:
+    the conv over the cached ``W-1`` inputs and this one (accumulated in f32,
+    then SiLU), then one step of the recurrence ``st = st·exp(dt·A) +
+    dt·B⊗x``, ``y = st·C``; the shifted window and the new state are written
+    back in place in the cache's dtypes.  Returns ``(y, cache)``.
+    """
     B, S, _ = x.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj = x @ p["in_proj"].to(x.dtype)
     z, xi, Bm, Cm, dt_raw = torch.split(proj, [di, di, N, N, H], dim=-1)
-    xBC = _causal_conv(torch.cat([xi, Bm, Cm], dim=-1), p["conv_w"], p["conv_b"])
+    xBC = torch.cat([xi, Bm, Cm], dim=-1)
+    if cache is None:
+        xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    else:
+        # the causal conv's last output over the cached inputs and this one
+        window = torch.cat([cache["conv"].to(xBC.dtype), xBC], dim=1)  # (B, W, ch)
+        xBC = _causal_conv(window, p["conv_w"], p["conv_b"])[:, -1:]
+        cache["conv"].copy_(window[:, 1:, :])
     xi, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
     xh = xi.reshape(B, S, H, cfg.ssm_head_dim)
     A = -torch.exp(p["A_log"].float())
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
 
-    y = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    if cache is None:
+        y = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    else:
+        st = cache["ssm"].float() * torch.exp(dt[:, 0, :] * A)[:, :, None, None]
+        st = st + torch.einsum("bh,bn,bhp->bhpn", dt[:, 0, :], Bm[:, 0, :].float(),
+                               xh[:, 0].float())
+        y = torch.einsum("bhpn,bn->bhp", st, Cm[:, 0, :].float())[:, None]
+        cache["ssm"].copy_(st)
     y = y + p["D_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(B, S, di) * F.silu(z.float())
     y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-6) * p["norm"].float()
-    return y.to(x.dtype) @ p["out_proj"].to(x.dtype), None
+    return y.to(x.dtype) @ p["out_proj"].to(x.dtype), cache

@@ -1,11 +1,11 @@
 """Model composition: segments of stacked layers, decoder-only, hybrid and
 encoder-decoder, the embedding, the head and the LM loss.
 
-The port of the train/prefill paths of ``repro/models/transformer.py``.  The
-params tree has the reference's structure leaf for leaf: ``"segments"`` is a
-list (one entry per ``plan_segments`` segment) of tuples (one dict per layer
-of the segment's unit), and every leaf under it has a leading ``repeats``
-axis, also when ``repeats == 1``; ``shared_block`` (zamba2's tied attention
+The port of ``repro/models/transformer.py``.  The params tree has the
+reference's structure leaf for leaf: ``"segments"`` is a list (one entry per
+``plan_segments`` segment) of tuples (one dict per layer of the segment's
+unit), and every leaf under it has a leading ``repeats`` axis, also when
+``repeats == 1``; ``shared_block`` (zamba2's tied attention
 block), ``encoder`` (whisper) and ``mtp`` (deepseek's multi-token
 prediction, its ``layer`` with a leading axis of 1) are where the reference
 has them.  So ``core/packing.build_manifest`` gives the reference's manifest
@@ -16,16 +16,20 @@ Where the reference runs ``lax.scan`` over a segment's leading axis, the
 port loops over it in Python, in the same layer order.  ``cfg.remat`` is not
 acted on (it changes no number).
 
-Every family of the reference trains: the dense decoder (``ATTN``/``SWA``,
-with or without a modality ``frontend_proj``), MoE and MLA with MTP, Mamba2,
-the Mamba2 + shared-attention hybrid and the encoder-decoder.  Decoding with
-a cache is slice H-4 of the port.
+Every family of the reference trains and decodes: the dense decoder
+(``ATTN``/``SWA``, with or without a modality ``frontend_proj``), MoE and
+MLA with MTP, Mamba2, the Mamba2 + shared-attention hybrid and the
+encoder-decoder.  A decode step takes the cache tree of ``models/kvcache.py``
+and writes into it in place: each layer gets its stacked leaf's view
+``leaf[r]``, so no step restacks the cache as the reference's scan does.
 
 Public entry points:
 
 * ``init_params(generator, cfg, device)``
 * ``encode(params, frames, cfg)`` — the audio encoder over frame embeddings
-* ``forward(params, tokens, cfg, ...)`` — train/prefill logits
+* ``forward(params, tokens, cfg, ...)`` — train/prefill logits, or a decode
+  step's with ``caches``
+* ``decode_step(params, tokens, caches, decode_pos, cfg)`` — one serve step
 * ``lm_loss(params, batch, cfg)`` — the causal LM objective (+ MoE aux,
   + MTP when configured)
 """
@@ -44,7 +48,7 @@ from repro_torch.models.config import (
 )
 from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "encode", "forward", "lm_loss"]
+__all__ = ["init_params", "encode", "forward", "decode_step", "lm_loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -143,33 +147,42 @@ def _encoder_segment(cfg: ModelConfig) -> Segment:
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
                  positions: torch.Tensor, shared_block: dict | None = None,
-                 memory: torch.Tensor | None = None):
+                 memory: torch.Tensor | None = None, cache: dict | None = None,
+                 decode_pos: torch.Tensor | None = None, decode_masks: dict | None = None):
     """One layer; returns ``(x, aux)``, ``aux`` the MoE load-balance loss (0
-    elsewhere).
+    elsewhere).  With ``cache``, the layer's entry of the decode cache, one
+    decode step at ``decode_pos`` that writes the entry in place (attention
+    masks shared through the step's ``decode_masks``).
 
     ``SHARED_ATTN`` runs ``shared_block`` (causal attention scaled by the
-    layer's ``adapter_scale``, then its MLP); ``MAMBA`` the Mamba2 mixer;
-    the attention family pre-norm attention (sliding for ``SWA``, causal
-    otherwise), cross-attention to ``memory`` for ``XATTN``, then the MoE or
-    the MLP.
+    layer's ``adapter_scale``, then its MLP; the cache at this position holds
+    its keys and values); ``MAMBA`` the Mamba2 mixer; the attention family
+    pre-norm attention (sliding for ``SWA``, causal otherwise), cross-attention
+    to ``memory`` for ``XATTN`` (recomputed from the memory at every step,
+    never cached), then the MoE or the MLP.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == SHARED_ATTN:
         sb = shared_block
         h = layers.apply_norm(sb["norm1"], x, cfg)
-        a, _ = layers.apply_attention(sb["attn"], h, cfg, positions=positions, mode="causal")
+        a, _ = layers.apply_attention(sb["attn"], h, cfg, positions=positions, mode="causal",
+                                      kv_cache=None if cache is None else cache["attn"],
+                                      decode_pos=decode_pos, decode_masks=decode_masks)
         x = x + a * p["adapter_scale"].to(x.dtype)
         h = layers.apply_norm(sb["norm2"], x, cfg)
         return x + layers.apply_mlp(sb["mlp"], h, cfg), aux
     if spec.kind == MAMBA:
         h = layers.apply_norm(p["norm1"], x, cfg)
-        y, _ = layers.apply_mamba(p["mamba"], h, cfg)
+        y, _ = layers.apply_mamba(p["mamba"], h, cfg,
+                                  cache=None if cache is None else cache["mamba"])
         return x + y, aux
 
     mode = "sliding" if spec.kind == SWA else "causal"
     h = layers.apply_norm(p["norm1"], x, cfg)
     attend = layers.apply_mla if cfg.attn_impl == "mla" else layers.apply_attention
-    a, _ = attend(p["attn"], h, cfg, positions=positions, mode=mode)
+    a, _ = attend(p["attn"], h, cfg, positions=positions, mode=mode,
+                  kv_cache=None if cache is None else cache["attn"], decode_pos=decode_pos,
+                  decode_masks=decode_masks)
     x = x + a
     if spec.kind == XATTN:
         h = layers.apply_norm(p["norm_x"], x, cfg)
@@ -188,23 +201,28 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
 def _run_segments(params_segments: list, x: torch.Tensor, cfg: ModelConfig,
                   segs: list[Segment], *, positions: torch.Tensor,
                   shared_block: dict | None = None, memory: torch.Tensor | None = None,
-                  encoder: bool = False):
+                  caches: list | None = None, decode_pos: torch.Tensor | None = None,
+                  decode_masks: dict | None = None, encoder: bool = False):
     """Apply every segment: for each step of its leading axis, its unit in
-    order.  Returns ``(x, aux)``, the MoE aux summed over the layers.
+    order.  Returns ``(x, aux)``, the MoE aux summed over the layers.  With
+    ``caches``, each layer gets its entry's views and writes them in place.
 
     With ``encoder=True`` every spec runs as ``ATTN``, hence with *causal*
     self-attention, as the reference's encoder does (its ``_encoder_mode``,
     which would make it bidirectional, is never called).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for seg, seg_params in zip(segs, params_segments):
+    for si, (seg, seg_params) in enumerate(zip(segs, params_segments)):
         for r in range(seg.repeats):
             p_unit = tree_map(lambda a: a[r], seg_params)
+            c_unit = None if caches is None else tree_map(lambda a: a[r], caches[si])
             for li, spec in enumerate(seg.unit):
                 if encoder:
                     spec = dataclasses.replace(spec, kind=ATTN)
                 x, a = _apply_layer(p_unit[li], x, cfg, spec, positions=positions,
-                                    shared_block=shared_block, memory=memory)
+                                    shared_block=shared_block, memory=memory,
+                                    cache=None if c_unit is None else c_unit[li],
+                                    decode_pos=decode_pos, decode_masks=decode_masks)
                 aux = aux + a
     return x, aux
 
@@ -219,7 +237,7 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     # The whole table is cast before the gather, as in the reference.
     x = params["embed"].to(cfg.dtype)[tokens]
     if cfg.name.startswith("gemma"):
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype, device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cfg.dtype, device=x.device)
     if cfg.pos_embedding == "sinusoidal":
         x = x + layers.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     return x
@@ -236,7 +254,7 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     Vp, V = cfg.padded_vocab_size, cfg.vocab_size
     if Vp != V:
         pad = torch.arange(Vp, device=x.device) >= V
-        mask = pad.float() * torch.tensor(-1e30, dtype=torch.float32, device=x.device)
+        mask = pad.float() * torch.full((), -1e30, dtype=torch.float32, device=x.device)
         logits = logits + mask.to(logits.dtype)
     return logits
 
@@ -266,24 +284,40 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             prefix_embeds: torch.Tensor | None = None, memory: torch.Tensor | None = None,
-            frames: torch.Tensor | None = None, return_hidden: bool = False):
-    """Token logits for train/prefill (decoding with a cache is slice H-4).
+            frames: torch.Tensor | None = None, caches: list | None = None,
+            decode_pos: int | torch.Tensor | None = None, return_hidden: bool = False):
+    """Token logits for train/prefill, or for a decode step with ``caches``.
 
-    ``tokens`` (B, S) int64; ``prefix_embeds`` (B, n_pre, frontend_dim) are
-    a VLM's patch embeddings, projected by ``frontend_proj`` and prepended
-    (their positions come first; their logits are dropped).  An
-    encoder-decoder takes the encoder's ``memory``, or ``frames`` to encode,
-    and raises the reference's ``AssertionError`` with neither.  Returns
-    ``(logits, None, aux)`` as the reference does (no caches; ``aux`` the
-    MoE load-balance loss summed over the layers), plus the final hidden
-    states before the final norm with ``return_hidden`` (the MTP head's
-    input).
+    ``tokens`` (B, S) of integers; ``prefix_embeds`` (B, n_pre,
+    frontend_dim) are a VLM's patch embeddings, projected by
+    ``frontend_proj`` and prepended (their positions come first; their logits
+    are dropped).  An encoder-decoder takes the encoder's ``memory``, or
+    ``frames`` to encode, and raises the reference's ``AssertionError`` with
+    neither.
+
+    Decode: ``caches`` is ``models/kvcache.py``'s tree and ``decode_pos`` the
+    absolute position of the one token (a Python int or a 0-d tensor, never
+    read back to the host); positions are ``decode_pos + arange(S)`` and
+    every layer writes its state into ``caches`` in place.
+
+    Returns ``(logits, caches, aux)`` as the reference does (``caches`` the
+    same tree, or ``None`` without one; ``aux`` the MoE load-balance loss
+    summed over the layers), plus the final hidden states before the final
+    norm with ``return_hidden`` (the MTP head's input).
     """
     S = tokens.shape[1]
-    n_pre = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    positions = torch.arange(n_pre + S, device=tokens.device)[None, :]
+    if (caches is None) != (decode_pos is None) or (caches is not None and S != 1):
+        raise ValueError("a decode step takes caches, decode_pos and one token a sequence; "
+                         f"got {S} tokens, caches {'set' if caches is not None else None}, "
+                         f"decode_pos {decode_pos}")
+    if decode_pos is None:
+        n_pre = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+        positions = torch.arange(n_pre + S, device=tokens.device)[None, :]
+    else:
+        decode_pos = torch.as_tensor(decode_pos, dtype=torch.int64, device=tokens.device)
+        positions = decode_pos + torch.arange(S, device=tokens.device)[None, :]
 
-    x = _embed(params, tokens, cfg, positions[:, n_pre:])
+    x = _embed(params, tokens, cfg, positions[:, -S:])
     if prefix_embeds is not None:
         pre = prefix_embeds.to(cfg.dtype) @ params["frontend_proj"].to(cfg.dtype)
         x = torch.cat([pre, x.to(pre.dtype)], dim=1)
@@ -294,14 +328,28 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         memory = encode(params, frames, cfg)
 
     x, aux = _run_segments(params["segments"], x, cfg, plan_segments(cfg), positions=positions,
-                           shared_block=params.get("shared_block"), memory=memory)
+                           shared_block=params.get("shared_block"), memory=memory,
+                           caches=caches, decode_pos=decode_pos,
+                           decode_masks=None if caches is None else {})
 
     if prefix_embeds is not None:
-        x = x[:, n_pre:]
+        x = x[:, prefix_embeds.shape[1]:]
     logits = _logits(params, x, cfg)
     if return_hidden:
-        return logits, None, aux, x
-    return logits, None, aux
+        return logits, caches, aux, x
+    return logits, caches, aux
+
+
+def decode_step(params: dict, tokens: torch.Tensor, caches: list,
+                decode_pos: int | torch.Tensor, cfg: ModelConfig, *,
+                memory: torch.Tensor | None = None):
+    """One serve step, under ``torch.no_grad()``: the next-token logits
+    ``(B, 1, Vp)`` of ``tokens`` (B, 1) at position ``decode_pos``, and the
+    caches (the same tree, updated in place)."""
+    with torch.no_grad():
+        logits, caches, _ = forward(params, tokens, cfg, memory=memory, caches=caches,
+                                    decode_pos=decode_pos)
+    return logits, caches
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -929,3 +929,96 @@ def test_h2_h3_layers_on_the_card_match_the_host(cuda_device, name):
                     want if isinstance(want, tuple) else (want,)):
         atol = 1e-5 * max(1.0, float(w.abs().max()))
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4, atol=atol)
+
+
+def test_quantize_kernels_past_2_31_elements(cuda_device):
+    """Kernels 3 and 4 on a row of 2^31 + 2^20 + 100 f32 values (the serve
+    leg's int8 echo is 3.88e9): bit-identical to their plain versions on the
+    first 2^20 values, the 2^21 around element 2^31 and the tail, through the
+    encoder's padding and its wire prefix."""
+    n = 2 ** 31 + 2 ** 20 + 100
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    row = torch.randn((n,), generator=gen, device=cuda_device) * 3
+    n_padded, n_scales, nbytes = tquant.wire_layout(n)
+    q, s = tops.quantize(row, block_rows=tquant.effective_block_rows(n))
+    assert q.shape[0] == n_padded
+    assert tquant.wire_prefix(q, s, n_scales).shape[0] == nbytes
+    tail = (n_padded - 2 ** 20) // 256 * 256
+    windows = [(0, 2 ** 20), (2 ** 31 - 2 ** 20, 2 ** 31 + 2 ** 20), (tail, n_padded)]
+    for a, b in windows:
+        pq, ps = tquant.quantize_torch(row[a:min(b, n)], 256, b - a)
+        assert torch.equal(q[a:b], pq), (a, b)
+        assert torch.equal(s[a // 256:b // 256].view(torch.int32), ps.view(torch.int32)), (a, b)
+    del row
+    deq = tquant.dequantize_cuda(q, s, 256)
+    for a, b in windows:
+        want = tquant.dequantize_torch(q[a:b], s[a // 256:b // 256], 256)
+        assert torch.equal(deq[a:b].view(torch.int32), want.view(torch.int32)), (a, b)
+
+
+_DECODE_ARCHS = ("gemma3-4b", "mamba2-780m", "zamba2-1.2b", "deepseek-v3-671b", "qwen3-14b",
+                 "whisper-large-v3", "qwen2-moe-a2.7b")
+
+
+@pytest.mark.parametrize("arch,S", [(a, 12) for a in _DECODE_ARCHS] + [("gemma3-4b", 40)])
+def test_decode_on_the_card_matches_the_host(cuda_device, arch, S):
+    """Each family's reduced f32 decode (TF32 off), every step's logits on
+    the card against the host at rtol 1e-4 / atol 1e-5, into a 16-position
+    cache (reduced gemma3 over 40 positions: its 16-slot rings wrap twice);
+    the cache written in place on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import kvcache
+    from repro_torch.tree import flatten
+
+    full_f32()
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    batch = _family_inputs(cfg, 4)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, size=(2, S)))
+    logits = {}
+    for name, params, dev in (("host", host, torch.device("cpu")), ("card", card, cuda_device)):
+        with torch.no_grad():
+            mem = (transformer.encode(params, batch["frames"].to(dev), cfg)
+                   if cfg.is_encoder_decoder else None)
+        caches = kvcache.init_cache(cfg, tokens.shape[0], max(16, S), dtype=torch.float32,
+                                    device=dev)
+        ptrs = [t.data_ptr() for t in flatten(caches)[0]]
+        logits[name] = torch.cat([transformer.decode_step(
+            params, tokens[:, t:t + 1].to(dev), caches, t, cfg, memory=mem)[0].cpu()
+            for t in range(S)], dim=1)
+        assert [t.data_ptr() for t in flatten(caches)[0]] == ptrs
+    V = cfg.vocab_size
+    np.testing.assert_allclose(logits["card"][..., :V].numpy(), logits["host"][..., :V].numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_int8_echo_on_the_card_equals_the_hosts(cuda_device, monkeypatch):
+    """``launch/serve.push_to_replicas`` of reduced gemma3 with int8 echoes:
+    the same counters on the card and the host, and every echo's wire bytes
+    identical (kernel 3 against its plain version through the codec)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+
+    cfg = get_reduced("gemma3-4b")
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    seen = {"cpu": [], "cuda": []}
+    upload = ttransport.Channel.upload
+
+    def spy(self, *args, **kw):
+        env = upload(self, *args, **kw)
+        seen[self.device.type].append(env.payload.copy())
+        return env
+
+    monkeypatch.setattr(ttransport.Channel, "upload", spy)
+    before = (tquant.quantize_cuda.launches, tquant.dequantize_cuda.launches)
+    ch_card, _, _ = serve.push_to_replicas(tree_map(lambda t: t.to(cuda_device), host), 3,
+                                           replica_upload="int8")
+    assert (tquant.quantize_cuda.launches - before[0],
+            tquant.dequantize_cuda.launches - before[1]) == (3, 1)
+    ch_host, _, _ = serve.push_to_replicas(host, 3, replica_upload="int8")
+    for name in ("channel.bytes_moved", "channel.upload_bytes", "channel.upload_messages"):
+        assert ch_card.telemetry.value(name) == ch_host.telemetry.value(name), name
+    assert len(seen["cuda"]) == len(seen["cpu"]) == 3
+    for got, want in zip(seen["cuda"], seen["cpu"]):
+        assert got.tobytes() == want.tobytes()

@@ -234,9 +234,6 @@ def test_apply_attention_matches_reference(arch, chunked):
         got, _ = tlayers.apply_attention(tp, torch.from_numpy(x), tcfg,
                                          positions=torch.from_numpy(pos), mode=mode)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="H-4"):
-        tlayers.apply_attention(tp, torch.from_numpy(x), tcfg, positions=torch.from_numpy(pos),
-                                mode="causal", kv_cache={})
 
 
 @pytest.mark.parametrize("gated", [True, False])
