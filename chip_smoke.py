@@ -51,7 +51,14 @@ nothing of the JAX package.  Phases, each printing its own lines:
              one-layer qwen2-moe-a2.7b's ``(4, 1,228,025,856)`` f32 arena
              (19.65 GB): a NaN dead row, two launches bit-identical, the
              plain version at 1e-5, event-timed beside its bound and
-             ``torch.mv``;
+             ``torch.mv``; the ``sharded`` lines: kernels 1, 5 and 6 at the 10m
+             shape through ``kernels/ops``' sharded builders on a 4-slot mesh
+             of the card (``make_controller_mesh(4)``), each call 4 launches,
+             bit-identical to one launch on the whole arena (a NaN dead row),
+             4 device kernels a call and no copy in the profiler, each slot's
+             launch event-timed and summed beside the sharded call, the whole
+             launch and the bound; the sharded scatter at ``(32, 158,976)``
+             bit-identical to the unsharded one;
 4. check   — small federations on the card agree with the same federations
              on the host: f32 (global buffer, rtol 1e-4 / atol 1e-5: the two
              devices sum in different orders across local steps), then the
@@ -106,13 +113,22 @@ nothing of the JAX package.  Phases, each printing its own lines:
              qwen2-moe-a2.7b (the reference's ``test_decode_matches_prefill``)
              over 12 positions, and gemma3 over 40 (its 16-slot rings wrap
              twice), every step's logits card against host (same bar) and the
-             card's decode against its prefill at the reference's 2e-3;
+             card's decode against its prefill at the reference's 2e-3; then
+             the sharded twins: f32 sync, the int8 arena, byzantine
+             ``trimmed_mean`` and ``median``, async, secure async, top-k
+             direct and the int8 resume again with the arena column-sharded
+             over 4 slots of the card, one dispatch worker each, each
+             bit-identical to its unsharded card run;
 5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100,
              fourteen legs and a diagnostic, then two fedlm-100m legs, each
              reached as users reach it, with
              its launch counts zeroed just before it and read just after:
              ``launch/train.main``
-             (f32 arena, raw codec); the stack store through
+             (f32 arena, raw codec); ``arena_sharded`` (``Driver``/
+             ``FederationEnv(arena_shards=4)``, 1 round: four ``(32,
+             2,543,616)`` f32 shards on the card, kernel 1 once a shard, the
+             global model bit-identical to the arena leg's round 1, the same
+             resident bytes); the stack store through
              ``Driver``/``FederationEnv`` with a lineage of two models per
              learner; ``int8_arena`` (int8 uplink into the int8-resident
              arena, fused reduce); ``int8_wire`` (int8 uplink decoded onto
@@ -265,9 +281,9 @@ PLAIN_DEPTH = (5, 2)
 # the same kernels and setting the same counters per round at 1 round as at
 # 2.  The arena leg keeps its 3 rounds and deadline_faults runs 2.
 # ``deadline_32`` is a one-round diagnostic.
-LEG_ROUNDS = {"arena": 3, "stack": 2, "int8_arena": 1, "int8_wire": 1, "trimmed_mean": 2,
-              "median": 1, "semi_sync": 2, "deadline_32": 1, "deadline_faults": 2,
-              "resume": 2, "secure": 1, "topk_direct": 2, "topk_densify_int8": 1,
+LEG_ROUNDS = {"arena": 3, "arena_sharded": 1, "stack": 2, "int8_arena": 1, "int8_wire": 1,
+              "trimmed_mean": 2, "median": 1, "semi_sync": 2, "deadline_32": 1,
+              "deadline_faults": 2, "resume": 2, "secure": 1, "topk_direct": 2, "topk_densify_int8": 1,
               "lm_arena": 2, "lm_int8_arena": 1, "lm_moe_arena": 2}
 ASYNC_UPDATES = 32  # the async leg's total_updates (one per learner)
 FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
@@ -331,6 +347,10 @@ DECODE_FAMILY_PARAMS = {"deepseek-v3-671b": 3_123_113_984, "mamba2-780m": 780_38
                         "zamba2-1.2b": 1_016_967_168, "whisper-large-v3": 1_603_507_200,
                         "qwen2-moe-a2.7b": 1_228_025_856}
 TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
+# The sharded arena's column slots (``FederationEnv(arena_shards=SLOTS)``): on
+# one card all of them share it, each shard its own allocation and launch.
+SLOTS = 4
+DEAD_ROW = 5  # the sharded kernels line's dead row: NaN values and scales, mask 0
 BYZANTINE = dict(seed=7, adversarial_fraction=0.15, adversarial_fates=("scale", "sign_flip"))
 BYZ_COUNTERS = ("engine.faults.adversarial.scale", "engine.faults.adversarial.sign_flip",
                 "engine.uploads.clipped", "engine.uploads.rejected.nonfinite",
@@ -397,6 +417,7 @@ def main() -> None:
     timing.update(time_int8_kernels(kq, kfed, kfu, dev, errs))
     errs["masked_trimmed_mean"] = check_trimmed_mean(krob, dev)
     timing.update(time_trimmed_mean(krob, dev, errs))
+    check_sharded_kernels(kfed, kfu, krob, dev, card)
     time_lm_kernels(kq, kfed, kfu, dev, errs, card)
     time_moe_kernel(kfed, dev, errs, card)
     check_topk(dev, card)
@@ -415,8 +436,11 @@ def main() -> None:
     g = d_gpu.controller.global_buffer.cpu()
     h = d_cpu.controller.global_buffer
     checks = {"f32": _close(g, h, 1e-4, atol=1e-5, what="check f32 card vs host")}
+    # The unsharded card runs the sharded twins must equal (check_sharded_federations).
+    card_models: dict = {"f32_sync": d_gpu.controller.global_buffer}
     small_fed = dict(size="100k", learners=4, rounds=2, local_steps=2, lr=0.01)
     d_gpu, _ = run_federation(train, dev, upload_codec="int8", arena_dtype="int8", **small_fed)
+    card_models["int8_arena"] = d_gpu.controller.global_buffer
     d_cpu, _ = run_federation(train, torch.device("cpu"), upload_codec="int8",
                               arena_dtype="int8", **small_fed)
     assert d_gpu.controller.arena.buffer.dtype == torch.int8
@@ -432,6 +456,7 @@ def main() -> None:
                      trim_k=6, workers=1)
     for rule in ("trimmed_mean", "median"):
         c_gpu, _ = run_byzantine(train, dev, rule=rule, **small_byz)
+        card_models[f"byzantine_{rule}"] = c_gpu.global_buffer
         c_cpu, _ = run_byzantine(train, torch.device("cpu"), rule=rule, **small_byz)
         checks[f"byzantine_{rule}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer,
                                              1e-4, atol=1e-5, what=f"check byzantine {rule}")
@@ -471,6 +496,7 @@ def main() -> None:
     for name, kw in protocol_checks.items():
         c_gpu, _ = run_controller(train, dev, lr=0.01, **kw)
         c_cpu, _ = run_controller(train, torch.device("cpu"), lr=0.01, **kw)
+        card_models[name] = c_gpu.global_buffer
         g, h = c_gpu.global_buffer.cpu(), c_cpu.global_buffer
         if kw.get("upload_codec") == "int8":
             checks[name] = within_q8_bar(g, h, f"check {name}")
@@ -496,11 +522,13 @@ def main() -> None:
     for name, kw in resume_checks.items():
         golden = {where: check_resume(train, d, name, **kw)
                   for where, d in (("card", dev), ("host", torch.device("cpu")))}
+        card_models[name] = golden["card"]
         g, h = golden["card"].cpu(), golden["host"]
         checks[name] = (within_q8_bar(g, h, f"check {name}") if kw.get("arena_dtype") == "int8"
                         else _close(g, h, 1e-4, atol=1e-5, what=f"check {name}"))
-    check_topk_federations(train, dev, task, checks)
+    check_topk_federations(train, dev, task, checks, card_models)
     c_gpu, _ = run_controller(train, dev, AsyncProtocol(**task), 4, updates=6, secure=True)
+    card_models["secure_async"] = c_gpu.global_buffer
     c_cpu, _ = run_controller(train, torch.device("cpu"), AsyncProtocol(**task), 4, updates=6,
                               secure=True)
     checks["secure_async"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer, 1e-4,
@@ -520,6 +548,8 @@ def main() -> None:
                                   optimizer=opt)
         checks[f"optimizer_{name}"] = _close(c_gpu.global_buffer.cpu(), c_cpu.global_buffer,
                                              1e-4, atol=1e-5, what=f"check optimizer {name}")
+    check_sharded_federations(train, dev, task, small_fed, small_byz, card_models)
+    del card_models
     check_lm(train, dev, checks)
     check_families(train, dev, checks)
     check_decode(dev, checks)
@@ -562,6 +592,8 @@ def main() -> None:
         "arena": lambda: _spy_evaluate(
             lambda c: arena_models.append(c.global_buffer.clone()),
             lambda: _controller(train.main(launcher(LEG_ROUNDS["arena"])))),
+        "arena_sharded": lambda: _controller(run_federation(train, dev, arena_shards=SLOTS,
+                                                            **fed("arena_sharded"))),
         "stack": lambda: _controller(run_federation(train, dev, lineage_length=2,
                                                     **fed("stack"))),
         "int8_arena": lambda: _controller(run_federation(train, dev, upload_codec="int8",
@@ -606,6 +638,7 @@ def main() -> None:
         uploads = c.telemetry.value("channel.upload_messages")
         return {
             "arena": {"masked_fedavg": rounds},
+            "arena_sharded": {"masked_fedavg": SLOTS * rounds},  # one launch a slot
             "stack": {"fedavg": rounds},
             "int8_arena": {"quantize": N_MAIN * rounds, "masked_fedavg_q8": rounds},
             "int8_wire": {"quantize": N_MAIN * rounds, "dequantize": N_MAIN * rounds,
@@ -664,7 +697,8 @@ def main() -> None:
         else:
             arena = c.arena
             resident[leg] = tel.value("store.arena.bytes_resident")
-            assert arena.buffer.device.type == "cuda", arena.buffer.device
+            devices = arena.buffer.devices if arena.sharded else [arena.buffer.device]
+            assert all(d.type == "cuda" for d in devices), devices
             if leg == "topk_direct":
                 assert arena.arena_dtype == "topk" and arena.indices.device.type == "cuda"
                 assert arena.buffer.dtype == torch.float32 and arena.indices.dtype == torch.int32
@@ -673,7 +707,7 @@ def main() -> None:
                 shape = {"lm_moe_arena": (N_MOE, P_MOE)}.get(
                     leg, (N_MAIN, P_LM if leg.startswith("lm_") else P_MAIN))
                 assert tuple(arena.buffer.shape) == shape, arena.buffer.shape
-        if leg in ("arena", "secure"):
+        if leg in ("arena", "arena_sharded", "secure"):
             assert c.arena.buffer.dtype == torch.float32
             assert up == N_MAIN * rounds * 4 * P_MAIN, up
         if leg.startswith("int8"):
@@ -730,6 +764,8 @@ def main() -> None:
             check_deadline_faults(c, leg, must_fire=leg == "deadline_faults")
         if leg == "arena":
             naive_line(c, kfed)
+        if leg == "arena_sharded":
+            check_arena_sharded(c, history, arena_models, resident, arena_aggregation_s)
         if leg == "secure":
             assert c.secure and not c.admission_control
             check_secure(c, secure_rounds, kfed)
@@ -914,14 +950,71 @@ def check_resume(train, dev, name, protocol, learners, steps, every, updates=Fal
 
 
 def run_byzantine(train, dev, size, learners, rounds, local_steps, lr, rule, trim_k,
-                  workers=32):
+                  workers=32, **ctrl_kw):
     """Sync rounds on a ``FaultyChannel`` with byzantine learners, built as the
     reference's adversarial arm builds it (``benchmarks/bench_round.py``)."""
     from repro_torch.core import SyncProtocol
 
     return run_controller(train, dev, SyncProtocol(local_steps, BATCH, lr), learners,
                           rounds=rounds, size=size, lr=lr, faults=BYZANTINE, workers=workers,
-                          aggregation_rule=rule, trim_k=trim_k)
+                          aggregation_rule=rule, trim_k=trim_k, **ctrl_kw)
+
+
+def check_sharded_federations(train, dev, task: dict, small_fed: dict, small_byz: dict,
+                              card_models: dict) -> None:
+    """The check phase's federations again, their arena column-sharded over
+    ``SLOTS`` slots of the card, one dispatch worker each: f32 sync and the
+    int8 arena on the int8 codec (``Driver``/``FederationEnv(arena_shards=
+    SLOTS)``), byzantine ``trimmed_mean`` and ``median``, async, secure async
+    and top-k direct (a ``Controller`` with ``arena_mesh=``), and the int8
+    resume.  Each must end bit-identical to its unsharded card run in
+    ``card_models`` (every reduction is per column, and rows follow
+    registration order, so a sync round's arrival order, which the unsharded
+    f32 and int8 runs leave to 32 dispatch workers, changes no bit), and the
+    resume bit-identical to its own uninterrupted sharded run."""
+    from repro_torch.core import AsyncProtocol, SyncProtocol
+    from repro_torch.core.transport import TopkUploadCodec
+    from repro_torch.launch.mesh import make_controller_mesh
+
+    twins: dict[str, tuple] = {}  # name -> (unsharded model, sharded controller)
+    for name, env in (("f32_sync", {}),
+                      ("int8_arena", dict(upload_codec="int8", arena_dtype="int8"))):
+        sharded, _ = run_federation(train, dev, arena_shards=SLOTS, max_dispatch_workers=1,
+                                    **small_fed, **env)
+        twins[name] = (card_models[name], sharded.controller)
+    for rule in ("trimmed_mean", "median"):
+        c, _ = run_byzantine(train, dev, rule=rule, arena_mesh=make_controller_mesh(SLOTS, dev),
+                             **small_byz)
+        twins[f"byzantine_{rule}"] = (card_models[f"byzantine_{rule}"], c)
+    for name, secure in (("async_arena", False), ("secure_async", True)):
+        c, _ = run_controller(train, dev, AsyncProtocol(**task), 4, updates=6, secure=secure,
+                              arena_mesh=make_controller_mesh(SLOTS, dev))
+        twins[name] = (card_models[name], c)
+    model, k = card_models["topk_sync_direct"]
+    c, _ = run_controller(train, dev, SyncProtocol(**task), 4, rounds=2,
+                          upload_codec=TopkUploadCodec(k=k), sparse_mode="direct",
+                          arena_mesh=make_controller_mesh(SLOTS, dev))
+    twins["topk_sync_direct"] = (model, c)
+    for name, (model, c) in twins.items():
+        arena = c.arena
+        _expect(arena.sharded and arena.n_shards == SLOTS,
+                f"check sharded {name}: the arena is not sharded over {SLOTS} slots")
+        same = _same_bits(c.global_buffer, model)
+        _expect(same, f"check sharded {name}: differs from its unsharded card run by "
+                      f"{float((c.global_buffer - model).abs().max())} at most")
+        print(json.dumps({"phase": "check", "sharded": name, "bit_identical_to_unsharded": same,
+                          "slots": [str(d) for d in arena.mesh.slot_devices(arena.axes)],
+                          "padded_params": arena.padded_params,
+                          "model_version": c._model_version,
+                          "counters": _engine_counters(c)}), flush=True)
+    resumed = check_resume(train, dev, "resume_int8_arena_sharded",
+                           protocol=lambda: SyncProtocol(**task), learners=3, steps=(2, 2),
+                           every=2, upload_codec="int8", arena_dtype="int8",
+                           arena_mesh=make_controller_mesh(SLOTS, dev))
+    same = _same_bits(resumed, card_models["resume_int8_arena"])
+    _expect(same, "check sharded resume_int8_arena: differs from its unsharded card run")
+    print(json.dumps({"phase": "check", "sharded": "resume_int8_arena",
+                      "bit_identical_to_unsharded": same}), flush=True)
 
 
 def run_federation(train, dev, size, learners, rounds, local_steps, lr, **env):
@@ -1080,6 +1173,33 @@ def naive_line(c, kfed) -> None:
                       "naive_s": naive_s, "kernel_ms": kernel_ms,
                       "naive_over_kernel": naive_s * 1e3 / kernel_ms,
                       "max_abs_diff": err}), flush=True)
+
+
+def check_arena_sharded(c, history, arena_models: list, resident: dict,
+                        arena_aggregation_s: list) -> None:
+    """The ``arena_sharded`` leg: housing-mlp-10m's round through
+    ``FederationEnv(arena_shards=SLOTS)``.  Its arena must be ``SLOTS``
+    ``(32, P_MAIN / SLOTS)`` f32 shards on the card holding the arena leg's
+    resident bytes, and its global model bit-identical to the arena leg's
+    round 1 (rows follow registration order, every reduction is per column,
+    and the resume leg holds such rounds to the bit already)."""
+    arena = c.arena
+    assert arena.sharded and arena.n_shards == SLOTS, arena.n_shards
+    assert [tuple(s.shape) for s in arena.buffer] == [(N_MAIN, P_MAIN // SLOTS)] * SLOTS
+    assert resident["arena_sharded"] == resident["arena"], resident
+    same = _same_bits(c.global_buffer, arena_models[0])
+    diff = float((c.global_buffer - arena_models[0]).abs().max())
+    print(json.dumps({"phase": "main.arena_sharded", "slots": SLOTS,
+                      "devices": [str(s.device) for s in arena.buffer],
+                      "shard": [N_MAIN, P_MAIN // SLOTS],
+                      "aggregation_s": [h_.aggregation_s for h_ in history],
+                      "arena_aggregation_s": arena_aggregation_s,
+                      "bytes_resident": resident["arena_sharded"],
+                      "arena_bytes_resident": resident["arena"],
+                      "bit_identical_to_arena_leg_round_1": same,
+                      "max_abs_diff_to_arena_leg_round_1": diff,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated()}), flush=True)
+    assert same, f"the sharded round differs from the arena leg's round 1 by {diff} at most"
 
 
 def resume_leg(train, dev, arena_models: list):
@@ -2113,7 +2233,8 @@ def _sent_indices(events: list) -> list:
     return out
 
 
-def check_topk_federations(train, dev, task: dict, checks: dict) -> None:
+def check_topk_federations(train, dev, task: dict, checks: dict,
+                           card_models: dict | None = None) -> None:
     """Top-k federations at housing-mlp 100k, 4 learners, one dispatch worker,
     k = P/64: sync direct, sync densify on the stack store, async direct (6
     updates), FedBuff direct (K = 3, 2 updates) and int8 values densified
@@ -2124,7 +2245,8 @@ def check_topk_federations(train, dev, task: dict, checks: dict) -> None:
     near-tie across the k boundary.  Then a sync-direct federation killed
     after round 2 and resumed must end bit-identical to the uninterrupted
     run on the card, the residuals and the sparse arena's indices riding
-    the checkpoint."""
+    the checkpoint.  The card's sync-direct model and its ``k`` go into
+    ``card_models`` for the sharded twin."""
     from repro_torch import optim
     from repro_torch.core import (AsyncProtocol, BufferedAsyncProtocol, SyncProtocol,
                                   packing)
@@ -2162,6 +2284,8 @@ def check_topk_federations(train, dev, task: dict, checks: dict) -> None:
             runs[where] = (c, events)
         c_gpu, events = runs["card"]
         c_cpu, host_events = runs["host"]
+        if card_models is not None and name == "topk_sync_direct":
+            card_models[name] = (c_gpu.global_buffer, k)
         ctrl_kw = {key: v for key, v in kw.items() if key not in ("rounds", "updates")}
         checks[name] = replay_on_host(train, events, name, protocol(), 4, upload_codec=codec,
                                       **ctrl_kw)
@@ -2235,6 +2359,103 @@ def check_topk_direct(c, rounds: list) -> None:
 # ---------------------------------------------------------------------------
 # The dense decoder LM (slice H-1): fedlm-100m through the federation
 # ---------------------------------------------------------------------------
+
+
+def check_sharded_kernels(kfed, kfu, krob, dev, card: str) -> None:
+    """The ``sharded`` line: kernels 1, 5 and 6 on a ``SLOTS``-slot mesh of
+    the card (``launch/mesh.make_controller_mesh``) at the 10m shape, through
+    ``kernels/ops``' sharded builders, as the ``arena_sharded`` leg's reduce
+    runs them.  Each call must launch ``SLOTS`` kernels (the wrappers'
+    counts), give the bits of one launch on the whole arena (a NaN dead row,
+    a NaN dead scale row), and show the profiler ``SLOTS`` device kernels a
+    call, all of them the kernel, with no copy among them.  Each slot's launch
+    alone (writing its window of the output) is event-timed; their sum stands
+    beside the sharded call, the whole launch and the bound.  Then the
+    sharded scatter at ``(32, K_MAIN)`` against the unsharded one, bit for bit."""
+    from repro_torch.kernels import ops, sparse_agg
+    from repro_torch.launch.mesh import make_controller_mesh
+    from repro_torch.models.sharding import arena_specs
+
+    mesh = make_controller_mesh(SLOTS, dev)
+    layout = arena_specs(mesh)[0]
+    windows = layout.windows(P_MAIN)
+    width = P_MAIN // SLOTS
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = torch.randn((N_MAIN, P_MAIN), generator=gen, device=dev)
+    q, scales, w = _q8_inputs(N_MAIN, P_MAIN, gen, dev)
+    m = torch.ones((N_MAIN,), device=dev)
+    m[DEAD_ROW] = 0.0
+    rows[DEAD_ROW] = float("nan")
+    scales[DEAD_ROW] = float("nan")
+    shards, q_sh, s_sh = layout.split(rows), layout.split(q), layout.split(scales)
+    groups = width // GROUP
+    cases = {
+        "masked_fedavg": (kfed.masked_fedavg_cuda, "fedavg_kernel",
+                          ops.masked_fedavg_sharded(mesh), (shards, w, m),
+                          lambda: kfed.masked_fedavg_cuda(rows, w, m),
+                          lambda s, out: ops.masked_fedavg(shards[s], w, m, out=out),
+                          N_MAIN * width * 4 + 4 * width + 8 * N_MAIN, 2 * N_MAIN * width),
+        "masked_fedavg_q8": (kfu.masked_fedavg_q8_cuda, "fedavg_kernel",
+                             ops.masked_fedavg_q8_sharded(mesh, group=GROUP),
+                             (q_sh, s_sh, w, m),
+                             lambda: kfu.masked_fedavg_q8_cuda(q, scales, w, m, GROUP),
+                             lambda s, out: ops.masked_fedavg_q8(q_sh[s], s_sh[s], w, m, GROUP,
+                                                                 out=out),
+                             N_MAIN * width + 4 * N_MAIN * groups + 4 * width + 8 * N_MAIN,
+                             3 * N_MAIN * width),
+        "masked_trimmed_mean": (krob.masked_trimmed_mean_cuda, "network_kernel",
+                                ops.masked_trimmed_mean_sharded(mesh, trim_k=TRIM_K),
+                                (shards, w, m),
+                                lambda: krob.masked_trimmed_mean_cuda(rows, m, TRIM_K),
+                                lambda s, out: ops.masked_trimmed_mean(shards[s], w, m, TRIM_K,
+                                                                       out=out),
+                                N_MAIN * width * 4 + 4 * width + 4 * N_MAIN,
+                                (2 * _sorting_network_size(N_MAIN) + N_MAIN) * width),
+    }
+    calls = 5
+    for name, (wrapper, kernel, sharded, args, whole, slot, nbytes, flops) in cases.items():
+        before = wrapper.launches
+        got = sharded(*args)
+        launches = wrapper.launches - before
+        _expect(launches == SLOTS, f"sharded {name}: {launches} launches in one call")
+        same = _same_bits(got, whole())
+        _expect(same, f"sharded {name}: differs from one launch on the whole arena")
+        names = _count_device_kernels(f"{name} sharded", lambda: sharded(*args),
+                                      [SLOTS, N_MAIN, width], calls=calls)
+        copies = {k: v for k, v in names.items() if "memcpy" in k.lower() or "copy" in k.lower()}
+        seen = sum(names.values())
+        _expect(not copies and all(kernel in k for k in names)
+                and SLOTS * calls - 1 <= seen <= SLOTS * calls,
+                f"sharded {name}: the profiler saw {names} in {calls} calls, not {SLOTS} "
+                f"{kernel} a call and no copy")
+        out = torch.empty((P_MAIN,), dtype=torch.float32, device=dev)
+        slot_ms = [_time_ms(lambda s=s, a=a, b=b: slot(s, out[a:b]))
+                   for s, (a, b) in enumerate(windows)]
+        _expect(_same_bits(out, got), f"sharded {name}: the slots' own launches differ")
+        sharded_ms, whole_ms = _time_ms(lambda: sharded(*args)), _time_ms(whole)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        print(json.dumps({"phase": "kernels", "sharded": name, "card": card, "slots": SLOTS,
+                          "devices": [str(d) for d in layout.devices],
+                          "shard": [N_MAIN, width], "launches_per_call": launches,
+                          "bit_identical_to_whole_launch": same,
+                          "device_kernels": names, "copies": copies,
+                          "slot_ms": slot_ms, "slot_ms_sum": sum(slot_ms),
+                          "sharded_call_ms": sharded_ms, "whole_launch_ms": whole_ms,
+                          "slot_bound_ms": bound_ms, "bound_ms": SLOTS * bound_ms,
+                          "bound_by": bound_by}), flush=True)
+    del rows, q, scales, shards, q_sh, s_sh, out
+    torch.cuda.empty_cache()
+    idx = torch.stack([torch.randperm(P_MAIN, generator=gen, device=dev)[:K_MAIN]
+                       for _ in range(N_MAIN)]).to(torch.int32)
+    val = torch.randn((N_MAIN, K_MAIN), generator=gen, device=dev)
+    val[DEAD_ROW] = float("nan")
+    wn = kfed.masked_normalize(w, m)
+    got = sparse_agg.scatter_accumulate_sharded(mesh, ("data",), P_MAIN)(idx, val, wn, m)
+    same = _same_bits(got, sparse_agg.scatter_accumulate(idx, val, wn, m, P_MAIN))
+    _expect(same, "sharded scatter_accumulate: differs from the unsharded scatter")
+    print(json.dumps({"phase": "kernels", "sharded": "scatter_accumulate", "slots": SLOTS,
+                      "shape": [N_MAIN, K_MAIN], "out_width": P_MAIN,
+                      "bit_identical_to_unsharded": same}), flush=True)
 
 
 def time_lm_kernels(kq, kfed, kfu, dev, errs: dict, card: str) -> None:

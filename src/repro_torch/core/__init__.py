@@ -25,11 +25,17 @@ from repro_torch.core.packing import (
 from repro_torch.core.aggregation import (
     coordinate_median,
     fedavg,
+    fedavg_sharded,
+    hierarchical_fedavg,
     masked_coordinate_median,
     masked_fedavg,
+    masked_fedavg_sharded,
+    masked_median_sharded,
     masked_normalize,
     masked_staleness_average,
+    masked_staleness_sharded,
     masked_trimmed_mean,
+    masked_trimmed_mean_sharded,
     masked_weighted_average,
     staleness_weights,
     trimmed_mean,
@@ -95,6 +101,8 @@ __all__ = [
     "staleness_weights",
     "coordinate_median", "trimmed_mean", "masked_coordinate_median",
     "masked_trimmed_mean",
+    "fedavg_sharded", "hierarchical_fedavg", "masked_fedavg_sharded",
+    "masked_staleness_sharded", "masked_median_sharded", "masked_trimmed_mean_sharded",
     "ModelRecord", "ModelStore", "ArenaStore",
     "SyncProtocol", "SemiSyncProtocol", "AsyncProtocol", "BufferedAsyncProtocol",
     "DeadlineCohortProtocol", "ReputationProtocol",

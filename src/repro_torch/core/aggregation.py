@@ -33,11 +33,21 @@ reduce the sparse arena's ``(N, k)`` index/value rows through
 ``kernels/sparse_agg.scatter_accumulate``: an XLA scatter in the reference,
 torch's ``index_add_`` one row at a time here, deterministic on the card.
 
-The sharded variants belong to slice G of the port (``ROADMAP.md``).
+The ``*_sharded`` variants reduce a column-sharded arena
+(``core/store.ArenaStore(mesh=...)``) laid out on a slot mesh
+(``launch/mesh.make_controller_mesh``): each returns a function with the
+reference's signature that runs the one-device rule once per slot, on the
+slot's ``(n_max, P/n_shards)`` shard, and assembles the ``(P,)`` result once,
+on the mesh's first slot device (``kernels/ops.per_slot``).  The reference's
+are ``jax.jit``s with column shardings and zero collectives; here too no data
+crosses slots inside a reduce.  Every rule is per column and the weight
+normalization reads only the replicated ``(n_max,)`` vectors, so a sharded
+result equals the one-device result.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops, sparse_agg
@@ -60,6 +70,17 @@ __all__ = [
     "trimmed_mean",
     "masked_coordinate_median",
     "masked_trimmed_mean",
+    "arena_axes",
+    "fedavg_sharded",
+    "masked_fedavg_sharded",
+    "masked_fedavg_q8_sharded",
+    "masked_staleness_q8_sharded",
+    "masked_fedavg_topk_sharded",
+    "masked_staleness_topk_sharded",
+    "masked_staleness_sharded",
+    "masked_median_sharded",
+    "masked_trimmed_mean_sharded",
+    "hierarchical_fedavg",
 ]
 
 
@@ -273,3 +294,168 @@ def masked_trimmed_mean(
         raise ValueError(f"trim_k={trim_k} too large for N={n}")
     out = ops.masked_trimmed_mean(arena, weights, mask, trim_k)
     return out.to(_robust_out_dtype(arena))
+
+
+# ---------------------------------------------------------------------------
+# Column-sharded aggregation
+# ---------------------------------------------------------------------------
+
+
+def arena_axes(mesh, axes=None) -> tuple[str, ...]:
+    """The arena's column-sharding axes on ``mesh``, always a tuple.
+
+    The default is the ``"data"`` axis if the mesh has one, else every axis;
+    shared by ``models.sharding.arena_specs`` (the store's layout) and every
+    sharded reduction below, so the two cannot disagree.  (The reference's
+    store reads the axes back from its row sharding's spec, where a single
+    axis is a bare string, and then iterates its letters: ``KeyError: 'd'``.)
+    """
+    if axes is None:
+        return ("data",) if "data" in mesh.axis_names else tuple(mesh.axis_names)
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def fedavg_sharded(mesh, stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """FedAvg of an ``(N, P)`` stack split along ``P`` over *all* mesh axes.
+
+    Every slot reduces its own parameter window (kernel 2 on the card): one
+    worker per shard, the generalization of MetisFL's one thread per tensor.
+    """
+    return ops.per_slot(ops.fedavg, mesh, tuple(mesh.axis_names))(stack, weights)
+
+
+def masked_fedavg_sharded(mesh, axes=None):
+    """Masked FedAvg over a column-sharded arena, one reduce a slot.
+
+    Returns ``(arena (N_max, P), weights (N_max,), mask (N_max,)) -> (P,)``;
+    per slot exactly :func:`masked_weighted_average` (kernel 1 on the card).
+    """
+    return ops.masked_fedavg_sharded(mesh, arena_axes(mesh, axes))
+
+
+def masked_fedavg_q8_sharded(mesh, axes=None, group: int = 256):
+    """Masked FedAvg over a column-sharded quantized arena, one fused reduce a
+    slot: ``(q (N, P) int8, scales (N, P//group), weights, mask) -> (P,)``."""
+    return ops.masked_fedavg_q8_sharded(mesh, arena_axes(mesh, axes), group)
+
+
+def masked_staleness_q8_sharded(mesh, axes=None, alpha: float = 0.5, group: int = 256):
+    """Sharded :func:`masked_staleness_q8`: ``(q, scales, num_examples,
+    versions, current_version, mask) -> (P,)``; the staleness discount runs
+    once on the ``(N,)`` vectors, the fused reduce once a slot."""
+    reduce = ops.masked_fedavg_q8_sharded(mesh, arena_axes(mesh, axes), group)
+
+    def _agg(q, scales, num_examples, versions, current_version, mask):
+        stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
+        return reduce(q, scales, staleness_weights(num_examples, stal, alpha), mask)
+
+    return _agg
+
+
+def masked_fedavg_topk_sharded(mesh, axes=None, out_width: int = 0):
+    """Masked sparse FedAvg into a column-sharded output.
+
+    Returns ``(indices (N, k) int32, values (N, k) f32, weights (N,), mask
+    (N,)) -> (out_width,)``.  The sparse arena's inputs stay whole (``N·k``
+    is small by construction); each slot scatters the coordinates that fall
+    in its own window (``kernels/sparse_agg.scatter_accumulate_sharded``).
+    """
+    scatter = sparse_agg.scatter_accumulate_sharded(mesh, arena_axes(mesh, axes),
+                                                     int(out_width))
+
+    def _agg(indices, values, weights, mask):
+        m = torch.as_tensor(mask).to(values.device, torch.float32)
+        return scatter(indices, values, masked_normalize(weights, m), m)
+
+    return _agg
+
+
+def masked_staleness_topk_sharded(mesh, axes=None, out_width: int = 0,
+                                  alpha: float = 0.5):
+    """Sharded :func:`masked_staleness_topk`: the staleness discount on the
+    ``(N,)`` vectors, then the column-sharded scatter."""
+    scatter = sparse_agg.scatter_accumulate_sharded(mesh, arena_axes(mesh, axes),
+                                                     int(out_width))
+
+    def _agg(indices, values, num_examples, versions, current_version, mask):
+        m = torch.as_tensor(mask).to(values.device, torch.float32)
+        stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
+        return scatter(indices, values,
+                       masked_normalize(staleness_weights(num_examples, stal, alpha), m), m)
+
+    return _agg
+
+
+def masked_staleness_sharded(mesh, axes=None, alpha: float = 0.5):
+    """Sharded :func:`masked_staleness_average`: ``(arena, num_examples,
+    versions, current_version, mask) -> (P,)``; the staleness discount on the
+    ``(N_max,)`` vectors, then kernel 1 once a slot."""
+    reduce = ops.masked_fedavg_sharded(mesh, arena_axes(mesh, axes))
+
+    def _agg(arena, num_examples, versions, current_version, mask):
+        stal = torch.clamp(float(current_version) - versions.to(torch.float32), min=0.0)
+        return reduce(arena, staleness_weights(num_examples, stal, alpha), mask)
+
+    return _agg
+
+
+def masked_median_sharded(mesh, axes=None):
+    """Masked coordinate median over a column-sharded arena: each slot sorts
+    its own columns (:func:`masked_coordinate_median`, ``torch.sort``)."""
+
+    def _local(arena, weights, mask, out=None):
+        return masked_coordinate_median(arena, weights, mask)
+
+    return ops.per_slot(_local, mesh, arena_axes(mesh, axes))
+
+
+def masked_trimmed_mean_sharded(mesh, axes=None, trim_k: int = 1):
+    """Masked trimmed mean over a column-sharded arena: kernel 6 once a slot;
+    an impossible trim raises :func:`masked_trimmed_mean`'s ``ValueError``."""
+    reduce = ops.masked_trimmed_mean_sharded(mesh, arena_axes(mesh, axes), trim_k)
+
+    def _agg(arena, weights, mask):
+        n = arena.shape[0]
+        if 2 * trim_k >= n:
+            raise ValueError(f"trim_k={trim_k} too large for N={n}")
+        return reduce(arena, weights, mask).to(_robust_out_dtype(arena))
+
+    return _agg
+
+
+def hierarchical_fedavg(mesh, pod_axis: str = "pod"):
+    """Beyond-paper: aggregation over the ``pod`` axis of a slot mesh.
+
+    Each pod is a learner silo: row ``i`` of the ``(n_pods, P)`` stack lives
+    on pod ``i``'s slots, column-windowed over the other axes.  Returns
+    ``(stack (n_pods, P), weights (n_pods,)) -> (P,)``: in every window each
+    pod's row is weighted, the rows are summed across pods in pod order (the
+    reference's ``psum``) and divided by ``max(Σw, 1e-12)``.
+    """
+    from repro_torch.models.sharding import windows
+
+    if pod_axis not in mesh.axis_names:
+        raise ValueError(f"axis {pod_axis!r} is not one of the mesh's {mesh.axis_names}")
+    names = list(mesh.axis_names)
+    grid = np.moveaxis(mesh.devices, names.index(pod_axis), 0)
+    n_pods = grid.shape[0]
+    grid = grid.reshape(n_pods, -1)  # [pod, window], windows row-major over the rest
+
+    def agg(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        if stack.shape[0] != n_pods:
+            raise ValueError(f"a stack of {stack.shape[0]} rows for {n_pods} pods")
+        w = torch.as_tensor(weights).to(torch.float32)
+        wsum = torch.clamp(w.sum(), min=1e-12)
+        home = grid[0, 0]
+        out = torch.empty((stack.shape[1],), dtype=torch.float32, device=home)
+        for j, (a, b) in enumerate(windows(stack.shape[1], grid.shape[1])):
+            dev = grid[0, j]
+            total = None
+            for i in range(n_pods):
+                contrib = (stack[i, a:b].to(grid[i, j]).to(torch.float32)
+                           * w[i].to(grid[i, j])).to(dev)
+                total = contrib if total is None else total + contrib
+            out[a:b].copy_(total / wsum.to(dev))
+        return out
+
+    return agg

@@ -2,12 +2,9 @@
 
 A framework-free copy of ``repro/core/config.py``: the same fields, defaults
 and validation, so one configuration describes a federation in both
-packages.  Values whose machinery is a later slice of the port (the top-k
-codec and arena, sharding — slices F and G) validate here and are refused by
-``Controller`` with ``NotImplementedError``; the robust rules
-(``aggregation_rule``, ``trim_k``) and checkpoints (``checkpoint_every``,
-``checkpoint_dir``, passed through by ``Driver``) run.
-:class:`FederationConfig` is one frozen, validated dataclass:
+packages; every knob runs, ``arena_shards`` included (``Driver`` builds
+its slot mesh).  :class:`FederationConfig` is one frozen, validated
+dataclass:
 
 * every knob is declared once, with its default and its validity range
   (``__post_init__`` rejects bad values at construction, not three layers

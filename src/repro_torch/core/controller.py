@@ -2,8 +2,9 @@
 
 The port of ``repro/core/controller.py`` for the ported slices: every
 protocol policy (round-based and continuous), the f32, int8 or sparse
-(top-k) arena or the stack store, the raw, int8 or top-k upload codec (and
-the int8 downlink codec), FedAvg and the robust rules, on one device.  The round engine
+(top-k) arena, one-device or column-sharded over a slot mesh, or the stack
+store, the raw, int8 or top-k upload codec (and
+the int8 downlink codec), FedAvg and the robust rules.  The round engine
 (``core/engine.py``) drives protocols and calls back into this plumbing:
 
 * **serialize-once broadcast** — the global model is serialized at most once
@@ -39,8 +40,10 @@ the int8 downlink codec), FedAvg and the robust rules, on one device.  The round
   (``repro_torch.checkpoint``), written by the engine every
   ``checkpoint_every`` rounds after it drains the tasks in flight.
 
-The sharded arena is slice G of the port: asking for it raises
-``NotImplementedError`` at construction.
+With ``arena_mesh=`` the arena is column-sharded over a slot mesh
+(``launch/mesh.make_controller_mesh``) and every reduction above runs once
+per slot on the slot's shard (``core/aggregation.*_sharded``), with the
+result assembled on the controller's device.
 """
 
 from __future__ import annotations
@@ -73,12 +76,6 @@ __all__ = ["RoundTimings", "Controller"]
 AggregateFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it is {slice_name} of the port (ROADMAP.md)"
-    )
-
-
 class Controller:
     """The federation controller: model state + transport + store plumbing.
 
@@ -105,6 +102,13 @@ class Controller:
     store_mode:
         ``"arena"`` (default) aggregates straight off the device-resident
         :class:`ArenaStore`; ``"stack"`` re-stacks the hash-map store.
+    arena_mesh / arena_axes:
+        A slot mesh (``launch/mesh.make_controller_mesh``) and the axes to
+        shard the arena's columns over (default its ``"data"`` axis): the
+        arena is then column-sharded, one shard a slot, and the reduce, the
+        staleness update and the secure sum run once per slot.  Arena mode
+        only.  A custom masked rule gets the shards assembled into one
+        ``(n_max, P)`` tensor on ``device``.
     arena_dtype:
         ``"f32"`` or ``"int8"`` (the quantized-resident arena: FedAvg only,
         arena store only, no custom aggregate function).
@@ -152,6 +156,7 @@ class Controller:
         arena_n_max: int = 8,
         arena_row_align: int = 1024,
         arena_mesh: Any = None,
+        arena_axes: Any = None,
         arena_dtype: str = "f32",
         sparse_mode: str = "densify",
         flat_uploads: bool = True,
@@ -204,8 +209,18 @@ class Controller:
                     "buffer, not int8 values + scales"
                 )
         self.arena_dtype = arena_dtype
-        if arena_mesh is not None:
-            raise _later_slice("the mesh-sharded arena", "slice G")
+        self.arena_mesh = arena_mesh
+        self.arena_axes = arena_axes
+        if arena_mesh is not None and store_mode != "arena":
+            raise ValueError("arena_mesh= requires store_mode='arena'")
+        # The rule-matched sharded reductions, built in set_initial_model when
+        # the arena is sharded.
+        self._sharded_masked_fn: Callable | None = None
+        self._sharded_staleness_fn: Callable | None = None
+        self._sharded_q8_fn: Callable | None = None
+        self._sharded_staleness_q8_fn: Callable | None = None
+        self._sharded_topk_fn: Callable | None = None
+        self._sharded_staleness_topk_fn: Callable | None = None
         if store is not None and store_mode == "arena":
             raise ValueError(
                 "store= is only honoured with store_mode='stack'; the arena "
@@ -248,8 +263,7 @@ class Controller:
                     "the support matrix in docs/PROTOCOLS.md"
                 )
         # A custom masked rule (or the wrapped custom aggregate_fn) opts out
-        # of the rule-matched sharded reduction.  Nothing reads this flag
-        # until that reduction (slice G) is ported.
+        # of the rule-matched sharded reduction built in set_initial_model.
         self._masked_is_default = aggregate_fn is None and masked_aggregate_fn is None
         if aggregation_rule == "median":
             self.aggregate_fn = lambda stack, w: aggregation.coordinate_median(stack)
@@ -430,6 +444,8 @@ class Controller:
                 num_params=max(1, int(self.global_buffer.shape[0])),
                 n_max=max(self._arena_n_max, len(self._learners)),
                 row_align=self._arena_row_align,
+                mesh=self.arena_mesh,
+                axes=self.arena_axes,
                 telemetry=self.telemetry,
                 arena_dtype="topk" if direct else self.arena_dtype,
                 sparse_k=self.channel.upload_codec.k if direct else None,
@@ -445,8 +461,43 @@ class Controller:
                     f"rows but the arena only holds {self.arena.n_max}; "
                     "every cohort would fall back to the untrimmed mean"
                 )
+            if self.arena.sharded:
+                self._build_sharded_reductions()
         for learner in self._learners.values():
             self._ship_manifest(learner)
+
+    def _build_sharded_reductions(self) -> None:
+        """The per-slot reductions matched to the arena and the rule.
+
+        Every rule is per column, so each shards the same way: the sparse
+        arena's scatter (whole ``(n, k)`` inputs, windowed output), the int8
+        arena's fused reduce, and on the f32 arena the configured rule's.  A
+        custom masked rule is honoured as it is, on the assembled buffer.
+        """
+        arena = self.arena
+        mesh, axes = arena.mesh, arena.axes
+        alpha = getattr(self.protocol, "staleness_alpha", 0.5)
+        if arena.arena_dtype == "topk":
+            self._sharded_topk_fn = aggregation.masked_fedavg_topk_sharded(
+                mesh, axes, arena.padded_params)
+            self._sharded_staleness_topk_fn = aggregation.masked_staleness_topk_sharded(
+                mesh, axes, arena.padded_params, alpha)
+            return
+        if self.arena_dtype == "int8":
+            self._sharded_q8_fn = aggregation.masked_fedavg_q8_sharded(
+                mesh, axes, arena.qgroup)
+            self._sharded_staleness_q8_fn = aggregation.masked_staleness_q8_sharded(
+                mesh, axes, alpha, arena.qgroup)
+            return
+        if self._masked_is_default:
+            if self.aggregation_rule == "median":
+                self._sharded_masked_fn = aggregation.masked_median_sharded(mesh, axes)
+            elif self.aggregation_rule == "trimmed_mean":
+                self._sharded_masked_fn = aggregation.masked_trimmed_mean_sharded(
+                    mesh, axes, self.trim_k)
+            else:
+                self._sharded_masked_fn = aggregation.masked_fedavg_sharded(mesh, axes)
+        self._sharded_staleness_fn = aggregation.masked_staleness_sharded(mesh, axes, alpha)
 
     def _ship_manifest(self, learner: Learner) -> None:
         """Ship the wire contract (manifest + row width + channel) once."""
@@ -831,10 +882,8 @@ class Controller:
                         weights.append(arena.weight_of(lid))
                 if not rows:
                     raise RuntimeError("no local models available to aggregate")
-                return secure_mod.secure_fedavg_arena(
-                    arena.buffer, rows, weights, num_params=arena.num_params,
-                    base_seed=self._mask_session_seed(self.round_id),
-                )
+                return self._secure_arena_sum(rows, weights,
+                                              self._mask_session_seed(self.round_id))
             # Empty-cohort check from the host-side row map: no device sync.
             if arena.num_valid(list(selected)) == 0:
                 raise RuntimeError("no local models available to aggregate")
@@ -842,20 +891,45 @@ class Controller:
             if arena.arena_dtype == "topk":
                 # Masked scatter-accumulate straight off the (n, k) sparse
                 # arena: the dense (N, P) stack is never built.
-                out = aggregation.masked_fedavg_topk(
-                    arena.indices, arena.buffer, arena.weights, mask, arena.padded_params
-                )
+                if self._sharded_topk_fn is not None:
+                    out = self._sharded_topk_fn(arena.indices, arena.buffer, arena.weights,
+                                                mask)
+                else:
+                    out = aggregation.masked_fedavg_topk(
+                        arena.indices, arena.buffer, arena.weights, mask, arena.padded_params
+                    )
                 self._c_sparse_agg.add(1)
             elif self.arena_dtype == "int8":
                 # Fused dequant-into-aggregate: the reduce reads the int8
                 # groups and scales directly, never building (N, P) f32.
-                out = aggregation.masked_fedavg_q8(
-                    arena.buffer, arena.scales, arena.weights, mask, arena.qgroup
-                )
+                if self._sharded_q8_fn is not None:
+                    out = self._sharded_q8_fn(arena.buffer, arena.scales, arena.weights, mask)
+                else:
+                    out = aggregation.masked_fedavg_q8(
+                        arena.buffer, arena.scales, arena.weights, mask, arena.qgroup
+                    )
                 self._c_fused_agg.add(1)
+            elif self._sharded_masked_fn is not None:
+                out = self._sharded_masked_fn(arena.buffer, arena.weights, mask)
             else:
-                out = self.masked_aggregate_fn(arena.buffer, arena.weights, mask)
-            return out[: arena.num_params]
+                # A custom masked rule sees one (n_max, P) tensor: a sharded
+                # arena's shards are assembled on the controller's device.
+                buf = arena.buffer.assemble(self.device) if arena.sharded else arena.buffer
+                out = self.masked_aggregate_fn(buf, arena.weights, mask)
+            return out[: arena.num_params].to(self.device)
+
+    def _secure_arena_sum(self, rows: list[int], weights: list[float],
+                          seed: int) -> torch.Tensor:
+        """The masked int32 sum over arena rows.  A sharded arena sums its
+        full padded width, one accumulator a slot (the reference's choice: the
+        padding columns decode to zero), and the result is sliced back."""
+        arena = self.arena
+        width = arena.padded_params if arena.sharded else arena.num_params
+        out = secure_mod.secure_fedavg_arena(
+            arena.buffer, rows, weights, num_params=width, base_seed=seed,
+            out_sharding=arena.row_sharding,
+        )
+        return out[: arena.num_params].to(self.device)
 
     def _staleness_reduce(self, mask: torch.Tensor, alpha: float) -> torch.Tensor:
         """Staleness-damped masked reduce over the arena (caller holds its lock).
@@ -870,22 +944,33 @@ class Controller:
         arena = self.arena
         version = float(self._model_version)
         if arena.arena_dtype == "topk":
-            out = aggregation.masked_staleness_topk(
-                arena.indices, arena.buffer, arena.weights, arena.versions,
-                version, mask, arena.padded_params, alpha,
-            )
+            if self._sharded_staleness_topk_fn is not None:
+                out = self._sharded_staleness_topk_fn(
+                    arena.indices, arena.buffer, arena.weights, arena.versions, version, mask)
+            else:
+                out = aggregation.masked_staleness_topk(
+                    arena.indices, arena.buffer, arena.weights, arena.versions,
+                    version, mask, arena.padded_params, alpha,
+                )
             self._c_sparse_agg.add(1)
         elif self.arena_dtype == "int8":
-            out = aggregation.masked_staleness_q8(
-                arena.buffer, arena.scales, arena.weights, arena.versions,
-                version, mask, alpha, arena.qgroup,
-            )
+            if self._sharded_staleness_q8_fn is not None:
+                out = self._sharded_staleness_q8_fn(
+                    arena.buffer, arena.scales, arena.weights, arena.versions, version, mask)
+            else:
+                out = aggregation.masked_staleness_q8(
+                    arena.buffer, arena.scales, arena.weights, arena.versions,
+                    version, mask, alpha, arena.qgroup,
+                )
             self._c_fused_agg.add(1)
+        elif self._sharded_staleness_fn is not None:
+            out = self._sharded_staleness_fn(
+                arena.buffer, arena.weights, arena.versions, version, mask)
         else:
             out = aggregation.masked_staleness_average(
                 arena.buffer, arena.weights, arena.versions, version, mask, alpha,
             )
-        return out[: arena.num_params]
+        return out[: arena.num_params].to(self.device)
 
     def _staleness_stack(self, records: list[ModelRecord], alpha: float) -> torch.Tensor:
         """Staleness-damped reduce of re-stacked stored models (stack mode);
@@ -989,10 +1074,8 @@ class Controller:
             weights.append(arena.weight_of(lid) * (1.0 + stale) ** (-alpha))
         if not rows:
             raise RuntimeError("no local models available to aggregate")
-        return secure_mod.secure_fedavg_arena(
-            arena.buffer, rows, weights, num_params=arena.num_params,
-            base_seed=self._mask_session_seed(self._model_version),
-        )
+        return self._secure_arena_sum(rows, weights,
+                                      self._mask_session_seed(self._model_version))
 
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self, directory: str | None = None,

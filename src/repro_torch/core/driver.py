@@ -33,6 +33,7 @@ from repro_torch.core.server_opt import make_server_optimizer
 from repro_torch.core.store import ModelStore
 from repro_torch.core.transport import Channel
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_controller_mesh
 
 log = logging.getLogger("repro_torch.driver")
 
@@ -165,8 +166,19 @@ class Driver:
         if store_mode == "auto":
             wants_hash_map = env.lineage_length > 1 or env.store_capacity_bytes is not None
             store_mode = "stack" if wants_hash_map else "arena"
-        if env.arena_shards:
-            raise NotImplementedError("arena_shards: the sharded arena is slice G of the port")
+        arena_mesh = None
+        if env.arena_shards and env.store_mode == "stack":
+            # Mirror Controller's arena_mesh+stack refusal: an explicitly
+            # requested stack store cannot be sharded; only the auto pick
+            # (lineage or eviction configured) drops the knob.
+            raise ValueError(
+                "arena_shards requires an arena store; it cannot combine with "
+                "store_mode='stack'"
+            )
+        if env.arena_shards and store_mode == "arena":
+            arena_mesh = make_controller_mesh(
+                None if env.arena_shards < 0 else env.arena_shards, self.device
+            )
         self.controller = Controller(
             protocol=env.make_protocol(),
             selection=env.selection,
@@ -180,6 +192,7 @@ class Driver:
                             upload_codec=env.upload_codec, device=self.device),
             secure=env.secure_aggregation,
             store_mode=store_mode,
+            arena_mesh=arena_mesh,
             flat_uploads=env.flat_uploads,
             profile_decay=env.profile_decay,
             aggregation_rule=env.aggregation_rule,

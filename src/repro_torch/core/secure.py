@@ -209,6 +209,11 @@ def secure_fedavg(
     return _masked_sum(list(buffers), weights, base_seed, scale)
 
 
+def _slot_seed(base_seed: int, slot: int) -> int:
+    """The pad seed of one column slot of a sharded sum (a 31-bit integer hash)."""
+    return ((base_seed * 2654435761) ^ ((slot + 1) * 2246822519) ^ 0x7F4A7C15) % (1 << 31)
+
+
 def secure_fedavg_arena(
     arena: torch.Tensor,
     rows: Sequence[int],
@@ -224,18 +229,42 @@ def secure_fedavg_arena(
     tensor (``core/store.ArenaStore``), sliced on the device.  Mask seeds
     derive from the *position* in ``rows`` (the session's participant
     index), so the result is bit-identical to :func:`secure_fedavg` on the
-    same buffers in the same order with the same ``base_seed``.  The sharded
-    arena's ``out_sharding`` is slice G of the port.
+    same buffers in the same order with the same ``base_seed``.
+
+    The sharded arena: ``arena`` is its ``ColumnShards``, or a whole tensor
+    with ``out_sharding`` the row layout to sum it in
+    (``models.sharding.arena_specs``; ignored, as the reference ignores it,
+    when the slots do not divide ``num_params``).  The wrapping int32
+    accumulator is kept per slot, over the slot's columns below
+    ``num_params``, with the slot's own pairwise pads, and the decoded
+    windows are assembled on the first slot's device.  The pads cancel
+    exactly whatever they are, so the result is bit-identical to the
+    one-device sum.
     """
-    if out_sharding is not None:
-        raise NotImplementedError(
-            "secure_fedavg_arena(out_sharding=...): the sharded arena is slice G "
-            "of the port (ROADMAP.md)"
-        )
+    from repro_torch.models.sharding import Columns, ColumnShards
+
     n = len(rows)
     if n == 0:
         raise ValueError("secure aggregation needs at least one participant row")
     if n != len(weights):
         raise ValueError("rows and weights must have equal length")
+    if out_sharding is not None and not isinstance(out_sharding, Columns):
+        raise TypeError(
+            "out_sharding must be the arena's row layout (models.sharding.arena_specs), "
+            f"got {type(out_sharding).__name__}"
+        )
     p = int(num_params) if num_params is not None else int(arena.shape[1])
-    return _masked_sum([arena[int(r), :p] for r in rows], weights, base_seed, scale)
+    if not isinstance(arena, ColumnShards):
+        if out_sharding is None or p % out_sharding.n_shards:
+            return _masked_sum([arena[int(r), :p] for r in rows], weights, base_seed, scale)
+        arena = out_sharding.split(arena[:, :p])
+    out = torch.empty((p,), dtype=torch.float32, device=arena[0].device)
+    start = 0
+    for slot, shard in enumerate(arena):
+        a, b = start, min(start + int(shard.shape[1]), p)
+        start += int(shard.shape[1])
+        if b > a:
+            part = _masked_sum([shard[int(r), : b - a] for r in rows], weights,
+                               _slot_seed(base_seed, slot), scale)
+            out[a:b].copy_(part)
+    return out

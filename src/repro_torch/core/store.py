@@ -1,6 +1,6 @@
 """In-memory model stores for the federation controller.
 
-The port of ``repro/core/store.py`` (f32 and int8 arenas, one device):
+The port of ``repro/core/store.py``:
 
 * :class:`ModelStore` — the hash-map store with per-learner lineage,
   capacity-bounded eviction and byte accounting; aggregation re-stacks its
@@ -19,8 +19,14 @@ The port of ``repro/core/store.py`` (f32 and int8 arenas, one device):
 
 The reference's donated JAX row write becomes an in-place
 ``buffer[row, :n].copy_(buf)``: PyTorch tensors are mutable, so the arena is
-updated in place with no ``(n_max, P)`` re-allocation.  The mesh-sharded
-arena is slice G of the port.
+updated in place with no ``(n_max, P)`` re-allocation.
+
+Passing ``mesh=`` (a slot mesh, ``launch/mesh.make_controller_mesh``) puts
+the arena in **sharded mode**: ``buffer`` (and an int8 arena's ``scales``)
+is a ``models.sharding.ColumnShards``, one ``(n_max, P/n_shards)`` tensor a
+slot, each its own allocation on its slot's device; a row write splits the
+upload once and copies each window into its slot's shard, and the
+controller's sharded reductions reduce each shard where it lies.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as quant
 from repro_torch.kernels import topk as topk_kernels
+from repro_torch.models.sharding import ColumnShards, arena_specs
 
 __all__ = ["ModelRecord", "ModelStore", "ArenaStore"]
 
@@ -210,7 +217,17 @@ class ArenaStore:
     256); ``arena_dtype="topk"`` makes ``buffer`` the ``(n_max, sparse_k)``
     f32 values and adds ``indices (n_max, sparse_k)`` int32, ``sparse_k``
     clamped to the padded row width as the wire codec clamps it.  More
-    learners than rows grow the arena geometrically.  Host
+    learners than rows grow the arena geometrically.
+
+    **Sharded mode** (``mesh=`` given, ``axes=`` its arena axes): ``buffer``
+    and ``scales`` are ``ColumnShards`` laid out by
+    ``models.sharding.arena_specs`` (``buffer_sharding``), one shard a slot on
+    the slot's device; ``padded_params`` rounds up to ``row_align *
+    n_shards`` so every shard is ``shard_width = padded_params / n_shards``
+    columns and stays aligned; the int8 arena needs ``shard_width`` to be a
+    whole number of groups.  The metadata vectors stay on ``device``, and the
+    sparse ``(n, k)`` arrays stay whole.  Growth copies each shard on its own
+    device.  Host
     mirrors (``_valid``, ``_weights_host``, ``_versions_host``) answer
     cohort questions without a device read.
 
@@ -238,21 +255,27 @@ class ArenaStore:
             raise ValueError(
                 f"arena_dtype must be 'f32', 'int8' or 'topk', got {arena_dtype!r}"
             )
-        if mesh is not None or axes is not None:
-            raise NotImplementedError(
-                "the mesh-sharded arena is slice G of the port (ROADMAP.md)"
-            )
         self.device = resolve_device(device)
         self.num_params = int(num_params)
         self.dtype = dtype
         self.arena_dtype = arena_dtype
         self.lock = threading.RLock()
-        self.padded_params = round_up(self.num_params, row_align)
+        self.mesh = mesh
+        if mesh is not None:
+            self.buffer_sharding, self.row_sharding, _ = arena_specs(mesh, axes)
+            self.axes = self.buffer_sharding.axes
+            self.n_shards = self.buffer_sharding.n_shards
+            self.padded_params = round_up(self.num_params, row_align * self.n_shards)
+        else:
+            self.axes = None
+            self.buffer_sharding = self.row_sharding = None
+            self.n_shards = 1
+            self.padded_params = round_up(self.num_params, row_align)
         if arena_dtype == "int8":
             self.qgroup = int(qgroup or quant.DEFAULT_GROUP)
-            if self.padded_params % self.qgroup:
+            if self.shard_width % self.qgroup:
                 raise ValueError(
-                    f"int8 arena needs the row width {self.padded_params} "
+                    f"int8 arena needs the per-shard row width {self.shard_width} "
                     f"divisible by the quant group {self.qgroup}; raise row_align "
                     "or shrink the group"
                 )
@@ -272,16 +295,20 @@ class ArenaStore:
         self._valid = np.zeros((n,), bool)
         self._weights_host = np.zeros((n,), np.float32)
         self._versions_host = np.zeros((n,), np.float32)
-        row_width = self.sparse_k if arena_dtype == "topk" else self.padded_params
-        self.buffer = torch.zeros((n, row_width), dtype=self.buffer_dtype, device=self.device)
-        self.indices = (
-            torch.zeros((n, row_width), dtype=torch.int32, device=self.device)
-            if arena_dtype == "topk" else None
-        )
-        # Per-row per-group f32 dequantization scales of the int8 arena.
+        if arena_dtype == "topk":
+            # The sparse (n, k) arrays stay whole even under a mesh: N·k is
+            # small by construction, and the sharded scatter reads them whole.
+            self.buffer = torch.zeros((n, self.sparse_k), dtype=torch.float32,
+                                      device=self.device)
+            self.indices = torch.zeros((n, self.sparse_k), dtype=torch.int32,
+                                       device=self.device)
+        else:
+            self.buffer = self._zeros((n, self.padded_params), self.buffer_dtype)
+            self.indices = None
+        # Per-row per-group f32 dequantization scales of the int8 arena, laid
+        # out as the rows are (a shard is a whole number of groups).
         self.scales = (
-            torch.zeros((n, self.padded_params // self.qgroup), dtype=torch.float32,
-                        device=self.device)
+            self._zeros((n, self.padded_params // self.qgroup), torch.float32)
             if arena_dtype == "int8" else None
         )
         self.weights = torch.zeros((n,), dtype=torch.float32, device=self.device)
@@ -309,14 +336,44 @@ class ArenaStore:
         """Deprecated shim for ``telemetry.value('store.arena.grow_events')``."""
         return self._c_grows.value
 
+    def _zeros(self, shape: tuple[int, int], dtype: torch.dtype):
+        """A dense arena array of zeros: laid out over the mesh when sharded."""
+        if self.sharded:
+            return self.buffer_sharding.zeros(shape, dtype)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _laid_out(self, full: np.ndarray):
+        """A host ``(n, P)`` array moved to the arena: split when sharded."""
+        x = torch.from_numpy(full)
+        return self.buffer_sharding.split(x) if self.sharded else x.to(self.device)
+
+    @staticmethod
+    def _host(x) -> np.ndarray:
+        """An arena array on the host, shards gathered side by side."""
+        if isinstance(x, ColumnShards):
+            return np.concatenate([s.cpu().numpy() for s in x], axis=1)
+        return x.cpu().numpy()
+
     # -- capacity -----------------------------------------------------------
     @property
     def n_max(self) -> int:
         """Current row capacity (grows geometrically on demand)."""
         return self.buffer.shape[0]
 
+    @property
+    def sharded(self) -> bool:
+        """True when the arena's rows are column-sharded over a slot mesh."""
+        return self.mesh is not None
+
+    @property
+    def shard_width(self) -> int:
+        """Columns a slot holds: ``padded_params / n_shards``."""
+        return self.padded_params // self.n_shards
+
     @staticmethod
-    def _grown(old: torch.Tensor, n_new: int) -> torch.Tensor:
+    def _grown(old, n_new: int):
+        if isinstance(old, ColumnShards):
+            return ColumnShards(ArenaStore._grown(s, n_new) for s in old)
         new = torch.zeros((n_new,) + tuple(old.shape[1:]), dtype=old.dtype, device=old.device)
         new[: old.shape[0]].copy_(old)
         return new
@@ -388,9 +445,11 @@ class ArenaStore:
                 learner_id, q[: self.padded_params],
                 s[: self.padded_params // self.qgroup], weight, version,
             )
+        if self.sharded and buf.shape[0] != self.padded_params:
+            buf = torch.nn.functional.pad(buf, (0, self.padded_params - buf.shape[0]))
         with self.lock:
             row = self._assign_row(learner_id)
-            self.buffer[row, : buf.shape[0]].copy_(buf)
+            self._write_row(self.buffer, row, buf)
             self.weights[row] = float(weight)
             self.versions[row] = float(version)
             self.mask[row] = 1.0
@@ -430,8 +489,8 @@ class ArenaStore:
         scales = scales.to(self.device, torch.float32)
         with self.lock:
             row = self._assign_row(learner_id)
-            self.buffer[row].copy_(q)
-            self.scales[row].copy_(scales)
+            self._write_row(self.buffer, row, q)
+            self._write_row(self.scales, row, scales)
             self.weights[row] = float(weight)
             self.versions[row] = float(version)
             self.mask[row] = 1.0
@@ -482,6 +541,18 @@ class ArenaStore:
             self._c_bytes.add(int(idx.nbytes) + int(val.nbytes))
             return row
 
+    def _write_row(self, array, row: int, values: torch.Tensor) -> None:
+        """Copy ``values`` into ``array[row]`` (its first ``len(values)``
+        columns); split once and each window copied to its slot when sharded."""
+        if isinstance(array, ColumnShards):
+            start = 0
+            for shard in array:
+                width = int(shard.shape[1])
+                shard[row].copy_(values[start: start + width])
+                start += width
+        else:
+            array[row, : values.shape[0]].copy_(values)
+
     def invalidate(self, learner_id: str) -> None:
         """Drop a learner's contribution (row is kept for reuse)."""
         with self.lock:
@@ -506,6 +577,14 @@ class ArenaStore:
             row = self._rows[learner_id]
             if not self._valid[row]:
                 raise KeyError(f"{learner_id} has no valid model in the arena")
+            if self.sharded:
+                if self.arena_dtype == "int8":
+                    parts = [(q[row].to(self.device, torch.float32).reshape(-1, self.qgroup)
+                              * s[row].to(self.device)[:, None]).reshape(-1)
+                             for q, s in zip(self.buffer, self.scales)]
+                else:
+                    parts = [shard[row].to(self.device) for shard in self.buffer]
+                return torch.cat(parts)[: self.num_params]
             if self.arena_dtype == "int8":
                 x = (self.buffer[row].to(torch.float32).reshape(-1, self.qgroup)
                      * self.scales[row][:, None]).reshape(-1)
@@ -572,7 +651,8 @@ class ArenaStore:
             return int(self._valid.sum())
 
     def resident_bytes(self) -> int:
-        """Device bytes held by the arena (buffer + scales + metadata vectors).
+        """Device bytes held by the arena (buffer + scales + metadata vectors;
+        every shard's, when sharded).
 
         Published as the ``store.arena.bytes_resident`` gauge after every
         capacity change: the int8 arena's ``(1 + 4/group)`` bytes per param
@@ -599,14 +679,14 @@ class ArenaStore:
         """
         with self.lock:
             state = {
-                "buffer": self.buffer.cpu().numpy(),
+                "buffer": self._host(self.buffer),
                 "weights": self._weights_host.copy(),
                 "versions": self._versions_host.copy(),
                 "valid": self._valid.copy(),
                 "rows": dict(self._rows),
             }
             if self.scales is not None:
-                state["scales"] = self.scales.cpu().numpy()
+                state["scales"] = self._host(self.scales)
             if self.indices is not None:
                 state["indices"] = self.indices.cpu().numpy()
             return state
@@ -669,7 +749,8 @@ class ArenaStore:
             self._versions_host = np.zeros((n,), np.float32)
             self._versions_host[: len(versions)] = np.asarray(versions, np.float32)
             self._rows = {str(k): int(v) for k, v in rows.items()}
-            self.buffer = torch.from_numpy(full).to(self.device)
+            self.buffer = (torch.from_numpy(full).to(self.device)
+                           if self.arena_dtype == "topk" else self._laid_out(full))
             if self.arena_dtype == "topk":
                 full_i = np.zeros((n, row_width), np.int32)
                 full_i[: indices.shape[0]] = indices
@@ -677,7 +758,7 @@ class ArenaStore:
             if self.arena_dtype == "int8":
                 full_s = np.zeros((n, self.padded_params // self.qgroup), np.float32)
                 full_s[: scales.shape[0]] = scales
-                self.scales = torch.from_numpy(full_s).to(self.device)
+                self.scales = self._laid_out(full_s)
             self.weights = torch.from_numpy(self._weights_host.copy()).to(self.device)
             self.versions = torch.from_numpy(self._versions_host.copy()).to(self.device)
             self.mask = torch.from_numpy(self._valid.astype(np.float32)).to(self.device)

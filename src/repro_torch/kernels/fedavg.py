@@ -247,10 +247,27 @@ def _vector(x, n: int, dev: torch.device, what: str) -> torch.Tensor:
     return t
 
 
-def _launch(rows: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+def _out(out: torch.Tensor | None, p: int, dev: torch.device, align: int) -> torch.Tensor:
+    """The ``(p,)`` f32 output on ``dev``: a new one, or the caller's ``out``
+    (a contiguous f32 ``(p,)`` tensor on ``dev`` whose start is
+    ``align``-byte aligned, such as a window of a larger row)."""
+    if out is None:
+        return torch.empty((p,), dtype=torch.float32, device=dev)
+    if (tuple(out.shape) != (p,) or out.dtype != torch.float32 or out.device != dev
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 ({p},) tensor on {dev}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    if out.data_ptr() % align:
+        raise ValueError(f"out must start {align}-byte aligned")
+    return out
+
+
+def _launch(rows: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor | None,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """Check the inputs, launch ``repro_fedavg`` on the current stream.
 
-    ``weights`` are raw: the kernel normalizes them.
+    ``weights`` are raw: the kernel normalizes them.  ``out`` (optional) is
+    written in place: it must start 16-byte aligned, as the kernel's stores are.
     """
     if rows.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {rows.device}")
@@ -268,7 +285,7 @@ def _launch(rows: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor | None
     w = _vector(weights, n, dev, "weights")
     m = None if mask is None else _vector(mask, n, dev, "mask")
     plan = launch_plan(rows)
-    out = torch.empty((p,), dtype=torch.float32, device=dev)
+    out = _out(out, p, dev, 16)
     lib = load_library().lib
     with torch.cuda.device(dev):
         rc = lib.repro_fedavg(
@@ -283,21 +300,24 @@ def _launch(rows: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor | None
 
 
 def masked_fedavg_cuda(
-    arena: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor
+    arena: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Masked FedAvg on the card through the hand-written kernel, one launch.
 
     Reads the arena in place at its padded width; the caller slices
-    ``[:num_params]``.  Raises on a non-CUDA tensor or a failed launch.
+    ``[:num_params]``.  Writes into ``out`` when given (16-byte aligned).
+    Raises on a non-CUDA tensor or a failed launch.
     """
-    out = _launch(arena, weights, mask)
+    out = _launch(arena, weights, mask, out)
     count_launch(masked_fedavg_cuda)
     return out
 
 
-def fedavg_cuda(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def fedavg_cuda(stack: torch.Tensor, weights: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """Unmasked FedAvg on the card through the same kernel (no mask)."""
-    out = _launch(stack, weights, None)
+    out = _launch(stack, weights, None, out)
     count_launch(fedavg_cuda)
     return out
 

@@ -76,7 +76,7 @@ def masked_fedavg_q8_torch(
 
 def masked_fedavg_q8_cuda(
     q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,
-    group: int = DEFAULT_GROUP,
+    group: int = DEFAULT_GROUP, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The fused dequant-into-aggregate on the card through the hand-written
     kernel, one launch.
@@ -84,7 +84,7 @@ def masked_fedavg_q8_cuda(
     Reads the arena and its scales in place (rows may be strided, at any
     alignment); ``weights`` are raw (the kernel normalizes them).  Raises on
     a non-CUDA tensor, a non-int8 arena, a bad shape or layout, or a failed
-    launch.
+    launch.  Writes into ``out`` when given (16-byte aligned).
     """
     if q.dtype != torch.int8:
         raise ValueError(f"the quantized arena must be int8, got {q.dtype}")
@@ -103,7 +103,7 @@ def masked_fedavg_q8_cuda(
     w = _fedavg._vector(weights, n, dev, "weights")
     m = _fedavg._vector(mask, n, dev, "mask")
     plan = _fedavg.launch_plan(q, group=group)
-    out = torch.empty((p,), dtype=torch.float32, device=dev)
+    out = _fedavg._out(out, p, dev, 16)
     lib = load_library().lib
     with torch.cuda.device(dev):
         rc = lib.repro_fedavg_q8(

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels._build import count_launch, load_library
 
 __all__ = ["sorting_network", "positive_nan", "masked_trimmed_mean_torch",
@@ -99,13 +100,14 @@ def masked_trimmed_mean_torch(
 
 
 def masked_trimmed_mean_cuda(
-    arena: torch.Tensor, mask: torch.Tensor, trim_k: int
+    arena: torch.Tensor, mask: torch.Tensor, trim_k: int, out: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Masked trimmed mean on the card through the hand-written kernel.
 
     Reads the arena in place at its padded width (row stride passed in); the
-    caller slices ``[:num_params]``.  Raises on a non-CUDA tensor, an
-    unsupported dtype or layout, an impossible ``trim_k`` or a failed launch.
+    caller slices ``[:num_params]``.  Writes into ``out`` when given.  Raises
+    on a non-CUDA tensor, an unsupported dtype or layout, an impossible
+    ``trim_k`` or a failed launch.
     """
     if arena.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {arena.device}")
@@ -123,7 +125,7 @@ def masked_trimmed_mean_cuda(
     m = torch.as_tensor(mask).to(arena.device, torch.float32).contiguous()
     if m.shape != (n,):
         raise ValueError(f"mask must be ({n},), got {tuple(m.shape)}")
-    out = torch.empty((p,), dtype=torch.float32, device=arena.device)
+    out = _fedavg._out(out, p, arena.device, 4)
     lib = load_library().lib
     with torch.cuda.device(arena.device):
         stream = torch.cuda.current_stream(arena.device).cuda_stream

@@ -31,7 +31,7 @@ mask additive ``-1e30`` in f32 over the cache's slots.
 Everything here is plain torch arithmetic, as it is jnp in the reference (no
 Pallas kernel there).  The sequence-sharded decodes (``_flash_decode``,
 MLA's ``shard_map`` decode) and the expert-parallel MoE (``apply_moe_ep``)
-are slice G.
+are slice G-2.
 """
 
 from __future__ import annotations
@@ -591,7 +591,7 @@ def apply_moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """One device: the dense MoE (the reference's choice without an active
-    sharding policy; its expert-parallel path is slice G)."""
+    sharding policy; its expert-parallel path is slice G-2)."""
     return apply_moe_dense(p, x, cfg)
 
 

@@ -27,6 +27,10 @@ template sizes and of the switch to the rank-select past 64 rows, and at
 full width; each of quantize and the trimmed mean one device kernel a call.
 The robust rules' sorts (both medians, both trimmed means' plain versions)
 equal the host's bit for bit with a negative and a positive NaN in live rows.
+The column-sharded arena: kernels 1, 5 and 6 once a slot on four shards of
+the 10m arena, one card, bit-identical to one launch on the whole arena; the
+sharded scatter bit-identical to the unsharded one; a sharded sync federation
+bit-identical to the unsharded one.
 Secure aggregation: ``encode_fixed`` and the masked sum on the card equal the
 host's bit for bit (NaN, ±inf, values past ±2^31 once scaled, sums that wrap),
 though the card's pads (Philox) are not the host's (mt19937); the pads' sign
@@ -1022,3 +1026,88 @@ def test_int8_echo_on_the_card_equals_the_hosts(cuda_device, monkeypatch):
     assert len(seen["cuda"]) == len(seen["cpu"]) == 3
     for got, want in zip(seen["cuda"], seen["cpu"]):
         assert got.tobytes() == want.tobytes()
+
+
+# -- the column-sharded arena: 4 slots of one card ----------------------------
+
+SLOTS = 4
+
+
+def _slot_mesh(dev):
+    """``SLOTS`` slots, every one on the card (the one-card layout of
+    ``make_controller_mesh(SLOTS)``)."""
+    from repro_torch.launch.mesh import SlotMesh
+
+    grid = np.empty((SLOTS,), dtype=object)
+    for s in range(SLOTS):
+        grid[s] = torch.device("cuda", dev.index or 0)
+    return SlotMesh(grid, ("data",))
+
+
+@pytest.mark.parametrize("kernel", ["masked_fedavg", "masked_fedavg_q8", "masked_trimmed_mean"])
+def test_sharded_kernels_equal_one_launch_on_the_whole_arena(cuda_device, kernel):
+    """Kernels 1, 5 and 6 once a slot on the 10m arena's four column shards:
+    the bits of one launch on the whole arena (a NaN dead row and dead scales),
+    one launch a slot."""
+    from repro_torch.models.sharding import arena_specs
+
+    mesh = _slot_mesh(cuda_device)
+    layout = arena_specs(mesh)[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    n = 32
+    m = torch.ones((n,), device=cuda_device)
+    m[5] = 0.0
+    w = torch.rand((n,), generator=gen, device=cuda_device) + 0.05
+    if kernel == "masked_fedavg_q8":
+        q = torch.randint(-127, 128, (n, P_MAIN), generator=gen, device=cuda_device,
+                          dtype=torch.int8)
+        s = torch.rand((n, P_MAIN // 256), generator=gen, device=cuda_device) + 0.01
+        s[5] = float("nan")
+        wrapper = tfused.masked_fedavg_q8_cuda
+        sharded, args = tops.masked_fedavg_q8_sharded(mesh), (layout.split(q), layout.split(s))
+        whole = lambda: wrapper(q, s, w, m)  # noqa: E731
+    else:
+        rows = torch.randn((n, P_MAIN), generator=gen, device=cuda_device)
+        rows[5] = float("nan")
+        args = (layout.split(rows),)
+        if kernel == "masked_fedavg":
+            wrapper, sharded = tfed.masked_fedavg_cuda, tops.masked_fedavg_sharded(mesh)
+            whole = lambda: wrapper(rows, w, m)  # noqa: E731
+        else:
+            wrapper = trobust.masked_trimmed_mean_cuda
+            sharded = tops.masked_trimmed_mean_sharded(mesh, trim_k=8)
+            whole = lambda: wrapper(rows, m, 8)  # noqa: E731
+    assert [tuple(a.shape) for a in args[0]] == [(n, P_MAIN // SLOTS)] * SLOTS
+    before = wrapper.launches
+    got = sharded(*args, w, m)
+    assert wrapper.launches - before == SLOTS
+    want = whole()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.isfinite(got).all()
+
+
+def test_sharded_scatter_equals_the_unsharded_on_the_card(cuda_device):
+    idx, val, w, mask = _sparse_arena(32, K_MAIN, P_MAIN, 2)
+    wn = w * mask / (w * mask).sum()
+    args = [t.to(cuda_device) for t in (idx, val, wn, mask)]
+    got = tsparse.scatter_accumulate_sharded(_slot_mesh(cuda_device), "data", P_MAIN)(*args)
+    want = tsparse.scatter_accumulate(*args, P_MAIN)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_sharded_sync_round_on_the_card_equals_the_unsharded_round(cuda_device):
+    """A housing-mlp 100k federation with its arena on 4 slots of the card:
+    the unsharded run's global model, bit for bit."""
+    out = []
+    for shards in (0, SLOTS):
+        cfg, learners = train.build_housing_learners("100k", 4, seed=0, device=cuda_device)
+        d = Driver(FederationEnv(local_steps=2, batch_size=100, learning_rate=0.01,
+                                 termination=TerminationCriteria(max_rounds=2),
+                                 arena_shards=shards, max_dispatch_workers=1,
+                                 device=cuda_device))
+        d.initialize(mlp.init_params(torch.Generator().manual_seed(0), cfg, cuda_device),
+                     learners)
+        d.run()
+        assert d.controller.arena.sharded == bool(shards)
+        out.append(d.controller.global_buffer)
+    assert torch.equal(out[0].view(torch.int32), out[1].view(torch.int32))

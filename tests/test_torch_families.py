@@ -82,11 +82,10 @@ def _np(x):
 # exports
 # ---------------------------------------------------------------------------
 
-# Owed to slice G (the column-sharded arena), and the port's own helpers: the
-# weights carried across to and from numpy, and the mask-aware normalization
-# its kernels share.
-_SHARDED = {"fedavg_sharded", "hierarchical_fedavg", "masked_fedavg_sharded",
-            "masked_staleness_sharded", "masked_median_sharded", "masked_trimmed_mean_sharded"}
+# Nothing of the reference's core is owed any more (the column-sharded arena
+# came with slice G-1); the port's own helpers: the weights carried across to
+# and from numpy, and the mask-aware normalization its kernels share.
+_SHARDED: set[str] = set()
 _PORT_ONLY = {"tree_from_numpy", "tree_to_numpy", "masked_normalize"}
 
 
@@ -101,8 +100,11 @@ def test_core_exports_the_references_names():
 
 def test_models_export_what_is_ported():
     assert tmodels.__all__ == ["ModelConfig", "plan_segments", "layers", "transformer",
-                               "kvcache", "mlp"]
-    assert set(jmodels.__all__) - set(tmodels.__all__) == {"sharding"}
+                               "kvcache", "mlp", "sharding"]
+    assert set(jmodels.__all__) == set(tmodels.__all__)
+    from repro_torch.models import sharding
+
+    assert tmodels.sharding is sharding and "arena_specs" in sharding.__all__
     assert tmodels.transformer is ttf and tmodels.layers is tlayers and tmodels.mlp is tmlp
     from repro_torch.models import kvcache
 

@@ -129,7 +129,9 @@ def test_masked_upload_differs_from_its_encoding_and_pads_are_uniform():
 
 
 def test_arena_secure_sum_refuses_the_sharded_layout():
-    with pytest.raises(NotImplementedError, match="slice G"):
+    # The sharded sum is ported (tests/test_torch_sharded.py); what it refuses
+    # is an out_sharding that is not a row layout of models.sharding.
+    with pytest.raises(TypeError, match="row layout"):
         tsec.secure_fedavg_arena(torch.zeros((2, 4)), [0, 1], [1.0, 1.0], out_sharding=object())
 
 

@@ -266,5 +266,9 @@ def test_recv_upload_sparse_refuses_dense_codecs():
 
 
 def test_sharded_scatter_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="slice G"):
-        tsparse.scatter_accumulate_sharded(None, "data", 1024)
+    # The sharded scatter is ported (tests/test_torch_sharded.py): it refuses,
+    # as the reference's does, an output that the slots do not divide.
+    from repro_torch.launch.mesh import make_controller_mesh
+
+    with pytest.raises(ValueError, match="out_width 1022 not divisible by 4 shards"):
+        tsparse.scatter_accumulate_sharded(make_controller_mesh(4, "cpu"), "data", 1022)

@@ -81,8 +81,12 @@ def test_arena_refuses_later_slices():
     assert ta.sparse_k == ja.sparse_k == 48
     assert tuple(ta.indices.shape) == tuple(ja.indices.shape) == (8, 48)
     assert ta.indices.dtype == torch.int32 and ta.resident_bytes() == ja.resident_bytes()
-    with pytest.raises(NotImplementedError, match="slice G"):
-        tstore.ArenaStore(num_params=P, mesh=object(), device="cpu")
+    # Slice G-1 is ported: a sharded arena constructs (tests/test_torch_sharded.py).
+    from repro_torch.launch.mesh import make_controller_mesh
+
+    sharded = tstore.ArenaStore(num_params=P, mesh=make_controller_mesh(2, "cpu"), device="cpu")
+    assert sharded.sharded and sharded.n_shards == 2
+    assert sharded.padded_params == sharded.shard_width * 2
 
 
 def test_raw_channel_bytes_and_stats_match_reference():
@@ -158,8 +162,10 @@ def test_admission_screen_rejects_nan_row_in_both():
 
 
 def test_controller_refuses_later_slices():
-    with pytest.raises(NotImplementedError, match="slice G"):
-        TController(device="cpu", arena_mesh=object())
+    # Slice G-1 is ported: a mesh is refused only beside the stack store, as
+    # in the reference.
+    with pytest.raises(ValueError, match="arena_mesh= requires store_mode='arena'"):
+        TController(device="cpu", arena_mesh=object(), store_mode="stack")
     # Slice F is ported: the top-k codec and both sparse modes construct.
     for mode in ("direct", "densify"):
         ctrl = TController(device="cpu", upload_codec="topk", sparse_mode=mode)
