@@ -118,7 +118,18 @@ nothing of the JAX package.  Phases, each printing its own lines:
              ``trimmed_mean`` and ``median``, async, secure async, top-k
              direct and the int8 resume again with the arena column-sharded
              over 4 slots of the card, one dispatch worker each, each
-             bit-identical to its unsharded card run;
+             bit-identical to its unsharded card run; then the model axis
+             (the reference's five multi-device scenarios at reduced size,
+             every slot of a ``make_debug_mesh`` on the card, f32, rtol
+             1e-4 / atol 1e-5 against the host): the expert-parallel MoE
+             over (2, 2) (the same kept routes; the kept tokens against
+             the dense MoE), the pod-policy train step ((2, 2, 2), FSDP;
+             reduced qwen3-14b and qwen2-moe), the sharded serve step
+             (the same tokens), flash decode over (2, 4) and (1, 4) (reduced
+             gemma3 through 40 positions, its rings wrapped twice; qwen3),
+             MLA's sharded decode and the 2-D EP decode ((2, 2), serving
+             FSDP; deepseek-v3, qwen2-moe), each decode also against the
+             card's unsharded one at the reference test's 2e-3;
 5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100,
              fourteen legs and a diagnostic, then two fedlm-100m legs, each
              reached as users reach it, with
@@ -137,8 +148,8 @@ nothing of the JAX package.  Phases, each printing its own lines:
              as the reference's adversarial arm builds it; the
              sorting-network kernel once per round); ``median``
              (``FederationEnv(aggregation_rule="median")``, faultless;
-             ``torch.sort``) — arena at 3 rounds, stack and trimmed_mean
-             at 2, int8_arena, int8_wire and median at 1;
+             ``torch.sort``) — arena, stack and trimmed_mean at 2
+             rounds, int8_arena, int8_wire and median at 1;
              ``semi_sync``
              (``launch/train.main --protocol semi_sync``, 2 rounds; round
              2's steps checked against the profiles); ``async``
@@ -203,6 +214,9 @@ nothing of the JAX package.  Phases, each printing its own lines:
              mamba2-780m, zamba2-1.2b and whisper-large-v3 (batch 2 with
              1500 frames), each with its params against the reference's
              count, a finite loss and gradients, its step seconds and peak
+             memory; and the one-layer qwen2-moe's step under the pod policy
+             (``("pod", "data", "model")`` slots of (2, 2, 2), FSDP: the EP
+             dispatch body) beside its unsharded step, seconds and peak
              memory.  Then the ``serve`` leg: gemma3-4b at full width and
              all 34 layers (3,879,925,248 params), its weights pushed to 4
              replicas with int8 echoes (``launch/serve.push_to_replicas``:
@@ -213,14 +227,27 @@ nothing of the JAX package.  Phases, each printing its own lines:
              prefill and decode seconds, tokens/s and peak memory; then
              kernels 3 and 4 on the pushed 3.88e9-element row, bit-identical
              to their plain versions on windows at its start, across element
-             2^31 and at its tail, and timed there beside their bounds.  Then
-             the ``decode_families`` line: deepseek-v3-671b (one layer),
+             2^31 and at its tail, and timed there beside their bounds;
+             before them the ``flash_decode`` line: the served gemma3-4b over
+             8 model slots of the card (``make_debug_mesh(1, 8)``: every
+             layer's ``_flash_decode``), 16 positions from 1040 of a seeded
+             batch-4 bf16 cache of 1056 positions, with the policy and
+             without on copies of the cache, every step's logits in f32
+             within 1e-4 of the logits' scale and in bf16 within twice the
+             unsharded bf16 decode's own distance from f32, ms and device
+             kernels a step for both, no memcpy.
+             Then the ``decode_families`` line: deepseek-v3-671b (one layer),
              mamba2-780m, zamba2-1.2b, whisper-large-v3 (its encoder over
              (4, 1500, 1280) frames) and qwen2-moe-a2.7b (one layer) served
              at full width, batch 4, 64 + 16 tokens in bf16: tokens/s, peak
              memory, and the f32 decode's logits against one prefill over
              the 80 tokens served within 1e-4 of the logits' scale (a bf16
-             cache, the control, misses that bar).  After the
+             cache, the control, misses that bar); deepseek-v3 (MLA's
+             sharded decode) and qwen2-moe (the 2-D EP decode) also decode
+             16 positions under a (2, 4) serving FSDP policy against the
+             unsharded decode (bf16 bar 0.1), and qwen2-moe runs one 2 x 64
+             prefill in f32 through the EP dispatch body over (1, 4), its
+             kept tokens against the dense MoE.  After the
              arena leg, the ``naive`` line: the paper's baseline,
              ``core/naive.naive_aggregate`` (host float64, tensor by tensor,
              learner by learner) over the arena's 32 uploads, timed against
@@ -235,6 +262,7 @@ the repository's ``src/`` beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -279,9 +307,12 @@ PLAIN_DEPTH = (5, 2)
 # H100 machine than on another, and the script must stay inside its time
 # limit on both): tools/compare_smoke_legs.py finds each of them launching
 # the same kernels and setting the same counters per round at 1 round as at
-# 2.  The arena leg keeps its 3 rounds and deadline_faults runs 2.
+# 2.  deadline_faults runs 2.  The arena leg runs 2 since the model axis's
+# lines came in (it ran 3): resume compares its 2 rounds with the arena
+# leg's, and tools/compare_smoke_legs.py finds the arena leg launching the
+# same kernels and setting the same counters per round at 2 as at 3.
 # ``deadline_32`` is a one-round diagnostic.
-LEG_ROUNDS = {"arena": 3, "arena_sharded": 1, "stack": 2, "int8_arena": 1, "int8_wire": 1,
+LEG_ROUNDS = {"arena": 2, "arena_sharded": 1, "stack": 2, "int8_arena": 1, "int8_wire": 1,
               "trimmed_mean": 2, "median": 1, "semi_sync": 2, "deadline_32": 1,
               "deadline_faults": 2, "resume": 2, "secure": 1, "topk_direct": 2, "topk_densify_int8": 1,
               "lm_arena": 2, "lm_int8_arena": 1, "lm_moe_arena": 2}
@@ -346,6 +377,28 @@ DECODE_BAR = 1e-4
 DECODE_FAMILY_PARAMS = {"deepseek-v3-671b": 3_123_113_984, "mamba2-780m": 780_382_464,
                         "zamba2-1.2b": 1_016_967_168, "whisper-large-v3": 1_603_507_200,
                         "qwen2-moe-a2.7b": 1_228_025_856}
+# The model axis (slice G-2).  The per-slot bodies of ``models/layers.py``
+# that the model axis legs count.
+MODEL_AXIS_PATHS = ("_flash_decode", "_mla_sharded_decode", "_moe_ep_dispatch", "_moe_ep_decode")
+# The reference's tests/test_multidevice.py MoE (capacity_factor 4: no route dropped).
+MOE_T = dict(name="t", arch_type="moe", n_layers=1, d_model=32, n_heads=4, n_kv_heads=4,
+             d_ff=64, vocab_size=100, n_experts=4, top_k=2, moe_d_ff=48, n_shared_experts=1,
+             shared_d_ff=48, capacity_factor=4.0)
+# The check phase's sharded decodes: (arch, mesh, make_policy kwargs, positions, cache).
+MODEL_AXIS_DECODES = (("gemma3-4b", (2, 4), {}, 40, 40), ("qwen3-14b", (1, 4), {}, 12, 16),
+                      ("deepseek-v3-671b", (2, 2), dict(fsdp=True, serving=True), 12, 16),
+                      ("qwen2-moe-a2.7b", (2, 2), dict(fsdp=True, serving=True), 12, 16))
+# The flash_decode line: the serve leg's gemma3-4b over 8 model slots, 16
+# positions from 1040 of a 1056-position cache (1056 and the rings' 1024 both
+# divide by 8).  FLASH_BAR is the dense family's bf16 logits bar
+# (tests/test_torch_decode.py, tests/test_torch_models.py): the decode_families
+# line's one-layer model-axis decodes of MODEL_AXIS_STEPS positions are held
+# to it.  Through gemma3-4b's 34 layers the bf16 decode's own rounding is
+# larger, so the flash_decode line holds the f32 decode at DECODE_BAR and the
+# bf16 one within twice the unsharded bf16 decode's distance from its f32 decode.
+FLASH_SLOTS, FLASH_MAX_LEN, FLASH_START, FLASH_STEPS = 8, 1056, 1040, 16
+FLASH_BAR = 0.1
+MODEL_AXIS_STEPS = 16
 TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
 # The sharded arena's column slots (``FederationEnv(arena_shards=SLOTS)``): on
 # one card all of them share it, each shard its own allocation and launch.
@@ -553,6 +606,7 @@ def main() -> None:
     check_lm(train, dev, checks)
     check_families(train, dev, checks)
     check_decode(dev, checks)
+    check_model_axis(dev, checks)
     print(json.dumps({"phase": "check", "max_abs_err_vs_host": checks,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     del d_gpu, d_cpu, c_gpu, c_cpu
@@ -2883,6 +2937,7 @@ def families_line(dev) -> None:
         del params, batch, step
         gc.collect()
         torch.cuda.empty_cache()
+    out["qwen2-moe-a2.7b (1 layer) model axis"] = pod_train_line(dev)
     print(json.dumps({"phase": "main.families", "families": out}), flush=True)
 
 
@@ -3012,6 +3067,7 @@ def serve_leg(dev, counters: dict, card: str) -> dict:
         "tokens_in_vocab": in_vocab, "sample": tokens[0, :8].tolist(),
         "init_s": init_s, "seconds": time.perf_counter() - t_leg, "card": card}), flush=True)
     del ch, tokens, prompts
+    flash_decode_line(params, cfg, dev, counters, card)
     row = packing.pack_numeric(params)
     del params
     check_serving_row(kq, row, card)
@@ -3156,13 +3212,435 @@ def decode_families_line(dev, card: str) -> None:
                          torch.cuda.max_memory_allocated() / 1e9,
                      "f32_positions": seq.shape[1], "f32_decode_vs_prefill_max_abs": gap,
                      "bf16_cache_control_max_abs": control_gap, "logit_scale": scale,
-                     "bar": bar, "tokens_in_vocab": in_vocab,
-                     "seconds": time.perf_counter() - t0}
+                     "bar": bar, "tokens_in_vocab": in_vocab}
+        if arch in ("deepseek-v3-671b", "qwen2-moe-a2.7b"):
+            out[arch]["model_axis"] = model_axis_decode(params, cfg, seq, dev)
+        if arch == "qwen2-moe-a2.7b":
+            out[arch]["ep_prefill"] = ep_prefill(params, cfg, dev)
+        out[arch]["seconds"] = time.perf_counter() - t0
         del params, prompts, frames, memory, tokens, seq, got, control, prefill
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"phase": "main.decode_families", "families": out, "card": card}),
           flush=True)
+
+
+
+@contextlib.contextmanager
+def _model_axis_paths():
+    """Count the model axis's per-slot bodies as they run: ``models/layers``'
+    ``_flash_decode``, ``_mla_sharded_decode`` and the expert-parallel MoE's
+    ``_moe_ep_dispatch`` and ``_moe_ep_decode``, one a layer each."""
+    from repro_torch.models import layers
+
+    real = {n: getattr(layers, n) for n in MODEL_AXIS_PATHS}
+    seen = dict.fromkeys(MODEL_AXIS_PATHS, 0)
+
+    def counted(name):
+        def call(*args, **kwargs):
+            seen[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in MODEL_AXIS_PATHS:
+        setattr(layers, name, counted(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+
+
+def _reduced_f32(arch: str, **kw):
+    from repro_torch.configs import get_reduced
+
+    return dataclasses.replace(get_reduced(arch), dtype=torch.float32, **kw)
+
+
+def _pod_mesh(dev):
+    """The reference's multi-pod ``("pod", "data", "model")`` (2, 2, 2) mesh,
+    every slot on ``dev``."""
+    from repro_torch.launch.mesh import SlotMesh
+
+    grid = np.empty((2, 2, 2), dtype=object)
+    for idx in np.ndindex(grid.shape):
+        grid[idx] = dev
+    return SlotMesh(grid, ("pod", "data", "model"))
+
+
+def _positions(start: int, n: int, dev) -> list[torch.Tensor]:
+    """Decode positions as 0-d device tensors, built before the steps (a
+    Python int becomes a host-to-device copy inside the step)."""
+    return [torch.full((), start + t, dtype=torch.int64, device=dev) for t in range(n)]
+
+
+def _stepped(params, cfg, tokens: torch.Tensor, caches, positions, policy, memory=None):
+    """Every step's logits ``(B, S, Vp)`` of ``transformer.decode_step`` fed
+    ``tokens`` one position at a time into ``caches`` (written in place), and
+    each step's wall seconds on the card."""
+    from repro_torch.models import transformer
+
+    logits, seconds = [], []
+    for t, pos in enumerate(positions):
+        _sync(tokens.device)
+        t0 = time.perf_counter()
+        lg, _ = transformer.decode_step(params, tokens[:, t:t + 1], caches, pos, cfg,
+                                        policy=policy, memory=memory)
+        _sync(tokens.device)
+        seconds.append(time.perf_counter() - t0)
+        logits.append(lg)
+    return torch.cat(logits, dim=1), seconds
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_model_axis(dev, checks: dict) -> None:
+    """The model axis on the card against the host, f32 with TF32 off: the
+    reference's five multi-device scenarios at reduced size, every slot of a
+    ``make_debug_mesh`` (or the (2, 2, 2) pod mesh) on the one device, the
+    weights from one host seed.  The expert-parallel MoE on (2, 2) (the
+    reference test's MoE and reduced qwen2-moe, whose capacity drops
+    routes): output and aux at rtol 1e-4 / atol 1e-5 (the output's atol
+    scaled to its largest value), the same kept routes, the kept tokens
+    against the card's dense MoE at the same bar; the pod-policy train step
+    (reduced qwen3-14b and qwen2-moe, FSDP, ``sgd(0.1)``): loss and updated
+    parameters at the bar; the sharded serve step (reduced gemma3, (2, 4), 10
+    greedy steps): the same tokens; the sharded decodes (flash decode on
+    reduced gemma3 over (2, 4) through 40 positions, its 16-slot rings
+    wrapped twice, and qwen3-14b over (1, 4); MLA's sharded decode and the
+    2-D EP decode on deepseek-v3 over (2, 2) with FSDP and serving; the 2-D
+    EP decode on qwen2-moe): every step's logits at the bar, and against the
+    card's unsharded decode at the reference test's 2e-3."""
+    from repro_torch import optim
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.models import kvcache, layers, transformer
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.tree import flatten, tree_map
+
+    host = torch.device("cpu")
+    where = (("card", dev), ("host", host))
+    rng = np.random.default_rng(29)
+    with _model_axis_paths() as seen:
+        for name in ("t", "qwen2-moe-a2.7b"):
+            cfg = ModelConfig(**MOE_T) if name == "t" else _reduced_f32(name)
+            p = layers.init_moe(torch.Generator().manual_seed(0), cfg)
+            x = torch.from_numpy(rng.standard_normal((4, 16, cfg.d_model), dtype=np.float32))
+            res = {}
+            for side, d in where:
+                pol = make_policy(cfg, make_debug_mesh(2, 2, d))
+                pd, xd = tree_map(lambda t: t.to(d), p), x.to(d)
+                with torch.no_grad():
+                    y, aux = layers.apply_moe_ep(pd, xd, cfg, pol)
+                    dense = layers.apply_moe_dense(pd, xd, cfg)[0]
+                    kept = layers.moe_ep_kept(pd, xd, cfg, pol)
+                res[side] = (y.cpu(), aux.cpu(), kept.cpu(), dense.cpu())
+            (y, aux, kept, dense), (y_h, aux_h, kept_h, _) = res["card"], res["host"]
+            scale = float(y_h.abs().max())
+            checks[f"model_axis_ep_{name}"] = _close(y, y_h, 1e-4, atol=1e-5 * scale,
+                                                     what=f"model axis EP {name}")
+            _close(aux.reshape(1), aux_h.reshape(1), 1e-4, atol=1e-5,
+                   what=f"model axis EP {name} aux")
+            _expect(torch.equal(kept, kept_h), f"model axis EP {name}: kept routes differ")
+            rows = kept.all(dim=-1)
+            _close(y.reshape(-1, cfg.d_model)[rows], dense.reshape(-1, cfg.d_model)[rows], 1e-4,
+                   atol=1e-5 * scale, what=f"model axis EP {name} kept tokens against dense")
+            print(json.dumps({"phase": "check", "model_axis": f"ep_{name}", "mesh": [2, 2],
+                              "tokens": int(rows.numel()), "tokens_dropped": int((~rows).sum()),
+                              "aux_card": float(aux), "aux_host": float(aux_h),
+                              "max_abs_err_vs_host": checks[f"model_axis_ep_{name}"]}),
+                  flush=True)
+        for arch in ("qwen3-14b", "qwen2-moe-a2.7b"):
+            cfg = _reduced_f32(arch)
+            params = transformer.init_params(torch.Generator().manual_seed(0), cfg, host)
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)))
+            res = {}
+            for side, d in where:
+                pol = make_policy(cfg, _pod_mesh(d), multi_pod=True, fsdp=True)
+                new, _, loss = make_train_step(cfg, optim.sgd(0.1), pol)(
+                    tree_map(lambda t: t.to(d), params), (),
+                    {"tokens": tokens.to(d), "labels": tokens.to(d)})
+                res[side] = (torch.cat([t.detach().reshape(-1).cpu() for t in flatten(new)[0]]),
+                             float(loss))
+            one = make_train_step(cfg, optim.sgd(0.1))(
+                tree_map(lambda t: t.to(dev), params), (),
+                {"tokens": tokens.to(dev), "labels": tokens.to(dev)})[2]
+            checks[f"model_axis_train_{arch}"] = _close(res["card"][0], res["host"][0], 1e-4,
+                                                        atol=1e-5,
+                                                        what=f"model axis pod train {arch}")
+            _close(torch.tensor([res["card"][1]]), torch.tensor([res["host"][1]]), 1e-4,
+                   atol=1e-5, what=f"model axis pod train {arch} loss")
+            print(json.dumps({"phase": "check", "model_axis": f"pod_train_{arch}",
+                              "mesh": [2, 2, 2], "loss_card": res["card"][1],
+                              "loss_host": res["host"][1], "loss_unsharded_card": float(one),
+                              "max_abs_err_vs_host": checks[f"model_axis_train_{arch}"]}),
+                  flush=True)
+        cfg = _reduced_f32("gemma3-4b")
+        params = transformer.init_params(torch.Generator().manual_seed(0), cfg, host)
+        toks = {}
+        for side, d in where:
+            step = make_serve_step(cfg, make_policy(cfg, make_debug_mesh(2, 4, d)))
+            pd = tree_map(lambda t: t.to(d), params)
+            cache = kvcache.init_cache(cfg, 4, 32, dtype=torch.float32, device=d)
+            tok, out = torch.zeros((4, 1), dtype=torch.int64, device=d), []
+            for pos in _positions(0, 10, d):
+                tok, cache = step(pd, cache, tok, pos)
+                out.append(tok.cpu())
+            toks[side] = torch.cat(out, dim=1)
+        _expect(torch.equal(toks["card"], toks["host"]),
+                f"model axis serve: tokens {toks['card'].tolist()} on the card, "
+                f"{toks['host'].tolist()} on the host")
+        print(json.dumps({"phase": "check", "model_axis": "sharded_serve", "mesh": [2, 4],
+                          "tokens_equal": torch.equal(toks["card"], toks["host"]),
+                          "sample": toks["card"][0].tolist()}), flush=True)
+        for arch, mesh, kw, S, L in MODEL_AXIS_DECODES:
+            cfg = _reduced_f32(arch, **({"mtp_depth": 0} if arch == "deepseek-v3-671b" else {}))
+            params = transformer.init_params(torch.Generator().manual_seed(0), cfg, host)
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, S)))
+            got = {}
+            for side, d in where:
+                pol = make_policy(cfg, make_debug_mesh(*mesh, d), **kw)
+                cache = kvcache.init_cache(cfg, 4, L, dtype=torch.float32, device=d)
+                with torch.no_grad():
+                    got[side] = _stepped(tree_map(lambda t: t.to(d), params), cfg, tokens.to(d),
+                                         cache, _positions(0, S, d), pol)[0].cpu()
+            cache = kvcache.init_cache(cfg, 4, L, dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                plain = _stepped(tree_map(lambda t: t.to(dev), params), cfg, tokens.to(dev),
+                                 cache, _positions(0, S, dev), None)[0].cpu()
+            V = cfg.vocab_size
+            name = f"model_axis_decode_{arch}_{mesh[0]}x{mesh[1]}"
+            checks[name] = _close(got["card"][..., :V], got["host"][..., :V], 1e-4, atol=1e-5,
+                                  what=f"check {name} card vs host")
+            gap = float((got["card"][..., :V] - plain[..., :V]).abs().max())
+            _expect(gap < 2e-3, f"check {name}: sharded against unsharded {gap} >= 2e-3")
+            print(json.dumps({"phase": "check", "model_axis": name, "positions": S,
+                              "cache_positions": L, "max_abs_err_vs_host": checks[name],
+                              "sharded_vs_unsharded_on_card": gap}), flush=True)
+    for path in MODEL_AXIS_PATHS:
+        _expect(seen[path] > 0, f"check model axis: {path} never ran")
+    print(json.dumps({"phase": "check", "model_axis_paths": seen}), flush=True)
+
+
+def flash_decode_line(params, cfg, dev, counters: dict, card: str) -> None:
+    """The ``flash_decode`` line: the serve leg's gemma3-4b (full width and
+    depth) decoding over 8 model slots of the card
+    (``make_policy(cfg, make_debug_mesh(1, 8))``: 4 KV heads do not shard
+    over 8, so every one of the 34 layers takes ``_flash_decode``; its 29
+    sliding layers' 1024-slot rings and 5 global layers' 1056 slots each
+    split 8 ways).  A batch-4 cache of ``FLASH_MAX_LEN`` positions is filled
+    from a seeded generator in bf16; ``FLASH_STEPS`` positions from
+    ``FLASH_START`` are stepped with the policy and without, each on its own
+    copy: in f32 compute (TF32 off) on an f32 copy, every step's logits
+    within ``DECODE_BAR`` of the largest |logit|, as ``decode_families``
+    holds its f32 decode; in bf16 as served, within twice the distance of
+    the unsharded bf16 decode from its f32 decode plus that bar (a second
+    rounding of the same size), beside the bf16 logits bar ``FLASH_BAR``.
+    The sharded cache is written in place.  Then ms a step (median, bf16)
+    and the device kernels of one bf16 step ``torch.profiler`` sees for
+    both, none of them a memcpy.  The launch counts are zeroed before the
+    sharded steps and read after them: the model axis runs no hand kernel."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import kvcache, transformer
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.tree import flatten, tree_map
+
+    t0 = time.perf_counter()
+    pol = make_policy(cfg, make_debug_mesh(1, FLASH_SLOTS, dev))
+    assert pol.active and pol.model_size == FLASH_SLOTS and not pol.shard_kv_heads, pol
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    sharded = kvcache.init_cache(cfg, SERVE_BATCH, FLASH_MAX_LEN, device=dev)
+    for leaf in flatten(sharded)[0]:
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, FLASH_STEPS), device=dev,
+                           generator=gen)
+    positions = _positions(FLASH_START, FLASH_STEPS, dev)
+    runs = {}
+    with torch.no_grad():
+        for name, c, pl, dtype in (("unsharded_f32", f32, None, torch.float32),
+                                   ("8 slots_f32", f32, pol, torch.float32),
+                                   ("unsharded", cfg, None, torch.bfloat16)):
+            caches = tree_map(lambda t: t.to(dtype, copy=True), sharded)
+            runs[name] = _stepped(params, c, tokens, caches, positions, pl)
+        ptrs = [t.data_ptr() for t in flatten(sharded)[0]]
+        for fn in counters.values():
+            fn.launches = 0
+        with _model_axis_paths() as seen:
+            runs["8 slots"] = _stepped(params, cfg, tokens, sharded, positions, pol)
+        counts = {name: fn.launches for name, fn in counters.items()}
+    V = cfg.vocab_size
+    logits = {k: v[0][..., :V].float() for k, v in runs.items()}
+    scale = float(logits["unsharded_f32"].abs().max())
+    err_f32 = _close(logits["8 slots_f32"], logits["unsharded_f32"], 0.0,
+                     atol=DECODE_BAR * scale,
+                     what="flash_decode: 8-slot f32 logits against the unsharded steps")
+    bf16_rounding = float((logits["unsharded"] - logits["unsharded_f32"]).abs().max())
+    sharded_rounding = float((logits["8 slots"] - logits["8 slots_f32"]).abs().max())
+    bf16_bar = 2 * bf16_rounding + DECODE_BAR * scale
+    err = _close(logits["8 slots"], logits["unsharded"], 0.0, atol=bf16_bar,
+                 what="flash_decode: 8-slot bf16 logits against the unsharded steps")
+    _expect(seen["_flash_decode"] == cfg.n_layers * FLASH_STEPS,
+            f"flash_decode: {seen} in {FLASH_STEPS} steps of {cfg.n_layers} layers")
+    _expect([t.data_ptr() for t in flatten(sharded)[0]] == ptrs,
+            "flash_decode: the sharded cache was not written in place")
+    plain = tree_map(lambda t: t.clone(), sharded)
+    last, pos = tokens[:, -1:], positions[-1]
+    with torch.no_grad():
+        kernels = {side: _count_device_kernels(
+            f"{cfg.name} decode step, {side}",
+            lambda c=c, pl=pl: transformer.decode_step(params, last, c, pos, cfg, policy=pl),
+            [SERVE_BATCH, 1], calls=1, windows=1)
+            for side, c, pl in (("8 slots", sharded, pol), ("unsharded", plain, None))}
+    memcpy = {side: {k: v for k, v in names.items() if "memcpy" in k.lower()}
+              for side, names in kernels.items()}
+    _expect(not memcpy["8 slots"], f"flash_decode: the profiler saw copies {memcpy}")
+    print(json.dumps({
+        "phase": "main.flash_decode", "arch": cfg.name, "layers": cfg.n_layers,
+        "slots": FLASH_SLOTS, "batch": SERVE_BATCH, "cache_positions": FLASH_MAX_LEN,
+        "positions": [FLASH_START, FLASH_START + FLASH_STEPS - 1],
+        "flash_decode_calls": seen["_flash_decode"], "launches": counts,
+        "f32_max_abs_err_vs_unsharded": err_f32, "f32_bar": DECODE_BAR * scale,
+        "logit_scale": scale, "bf16_max_abs_err_vs_unsharded": err,
+        "bf16_bar": bf16_bar, "bf16_logits_bar": FLASH_BAR,
+        "unsharded_bf16_vs_f32": bf16_rounding, "sharded_bf16_vs_f32": sharded_rounding,
+        "step_ms_median": {k: statistics.median(v[1]) * 1e3 for k, v in runs.items()},
+        "step_ms": {k: [x * 1e3 for x in runs[k][1]] for k in ("8 slots", "unsharded")},
+        "device_kernels_per_step": {k: sum(v.values()) for k, v in kernels.items()},
+        "memcpy": memcpy, "cache_written_in_place": True,
+        "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    del sharded, plain, runs, logits
+    torch.cuda.empty_cache()
+
+
+def model_axis_decode(params, cfg, seq: torch.Tensor, dev) -> dict:
+    """One family of the ``decode_families`` line over the model axis: the
+    served tokens' first ``MODEL_AXIS_STEPS`` decoded in bf16 under
+    ``make_policy(cfg, make_debug_mesh(2, 4), fsdp=True, serving=True)`` and
+    without it, each into its own bf16 cache, every step's logits at the
+    bf16 logits bar ``FLASH_BAR``; the per-slot paths counted."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import kvcache
+    from repro_torch.models.sharding import make_policy
+
+    pol = make_policy(cfg, make_debug_mesh(2, 4, dev), fsdp=True, serving=True)
+    tokens = seq[:, :MODEL_AXIS_STEPS]
+    positions = _positions(0, MODEL_AXIS_STEPS, dev)
+    with torch.no_grad():
+        want, plain_s = _stepped(params, cfg, tokens, kvcache.init_cache(
+            cfg, tokens.shape[0], MODEL_AXIS_STEPS, device=dev), positions, None)
+        with _model_axis_paths() as seen:
+            got, sharded_s = _stepped(params, cfg, tokens, kvcache.init_cache(
+                cfg, tokens.shape[0], MODEL_AXIS_STEPS, device=dev), positions, pol)
+    V = cfg.vocab_size
+    err = _close(got[..., :V].float(), want[..., :V].float(), 0.0, atol=FLASH_BAR,
+                 what=f"decode_families {cfg.name}: 2x4 policy against unsharded")
+    routed = sum(spec.moe for spec in cfg.layer_specs())
+    _expect(seen["_moe_ep_decode"] == routed * MODEL_AXIS_STEPS,
+            f"decode_families {cfg.name}: {seen}, {routed} routed layers")
+    if cfg.attn_impl == "mla":
+        _expect(seen["_mla_sharded_decode"] == cfg.n_layers * MODEL_AXIS_STEPS,
+                f"decode_families {cfg.name}: MLA's sharded decode {seen}")
+    return {"mesh": [2, 4], "fsdp": True, "serving": True, "positions": MODEL_AXIS_STEPS,
+            "paths": seen, "logits_max_abs_err_vs_unsharded": err, "bar": FLASH_BAR,
+            "step_ms_median": {"2x4": statistics.median(sharded_s) * 1e3,
+                               "unsharded": statistics.median(plain_s) * 1e3}}
+
+
+def ep_prefill(params, cfg, dev) -> dict:
+    """The ``ep_prefill`` part of the decode_families line: one 2 x 64-token
+    prefill of the one-layer qwen2-moe in f32 (TF32 off) through
+    ``make_prefill_step`` under ``make_policy(cfg, make_debug_mesh(1, 4))``,
+    the training layout, so its routed layer takes the EP dispatch body
+    (capacity per expert ``C``; routes past it dropped).  The MoE layer's
+    input is captured and held: the dispatch body's output against
+    ``apply_moe_dense`` on the tokens whose routes were all kept, at rtol 1e-4
+    / atol 1e-5 of the largest |output|; how many were not is printed."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers
+    from repro_torch.models.sharding import make_policy
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    pol = make_policy(f32, make_debug_mesh(1, 4, dev))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=dev, generator=gen)
+    captured = []
+    real = layers.apply_moe
+
+    def spy(p, x, c, policy=None):
+        y, aux = real(p, x, c, policy)
+        captured.append((p, x, y))
+        return y, aux
+
+    layers.apply_moe = spy
+    try:
+        with _model_axis_paths() as seen:
+            nxt = make_prefill_step(f32, pol)(params, {"tokens": tokens})
+    finally:
+        layers.apply_moe = real
+    nxt_plain = make_prefill_step(f32)(params, {"tokens": tokens})
+    (p, x, y), = captured
+    with torch.no_grad():
+        kept = layers.moe_ep_kept(p, x, f32, pol).all(dim=-1)
+        dense = layers.apply_moe_dense(p, x, f32)[0]
+    D = f32.d_model
+    scale = float(dense.abs().max())
+    err = _close(y.reshape(-1, D)[kept], dense.reshape(-1, D)[kept], 1e-4, atol=1e-5 * scale,
+                 what="ep_prefill: kept tokens against apply_moe_dense")
+    _expect(seen["_moe_ep_dispatch"] == 1, f"ep_prefill: {seen}")
+    return {"mesh": [1, 4], "tokens": int(kept.numel()), "tokens_not_all_kept":
+            int((~kept).sum()), "capacity": layers._ep_capacity(f32, kept.numel(), 1),
+            "max_abs_err_kept_vs_dense": err, "scale": scale, "paths": seen,
+            "next_tokens_equal_unsharded": int((nxt == nxt_plain).sum())}
+
+
+def pod_train_line(dev) -> dict:
+    """The families line's model-axis step: the one-layer qwen2-moe
+    (``moe_config()``) trained one ``make_train_step`` (SGD at lr 0.05, bf16
+    compute) on 16 x 64 tokens under the pod policy (``("pod", "data",
+    "model")`` slots of (2, 2, 2), FSDP: the routed layer through the EP
+    dispatch body, 4 data blocks and 2 model slots) beside the unsharded
+    step, from the same weights: the median step seconds of ``FAMILY_STEPS``
+    after one warm-up, the peak memory and the losses of each."""
+    from repro_torch import optim
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import make_policy
+
+    cfg = moe_config()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    batch = _family_batch(cfg, LM_BATCH, 64, dev, 3)
+    out = {}
+    for side, pol in (("unsharded", None),
+                      ("pod_2x2x2", make_policy(cfg, _pod_mesh(dev), multi_pod=True, fsdp=True))):
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, optim.sgd(LR), pol)
+        p, seconds, losses = params, [], []
+        with _model_axis_paths() as seen:
+            for i in range(1 + FAMILY_STEPS):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                p, _, loss = step(p, (), batch)
+                torch.cuda.synchronize()
+                losses.append(float(loss))
+                if i:
+                    seconds.append(time.perf_counter() - ts)
+        assert all(math.isfinite(x) for x in losses), (side, losses)
+        out[side] = {f"step_s_median_of_{FAMILY_STEPS}": statistics.median(seconds),
+                     "step_s": seconds, "losses": losses, "paths": seen,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del p
+    _expect(out["pod_2x2x2"]["paths"]["_moe_ep_dispatch"] > 0,
+            f"families pod step: the EP dispatch body never ran {out}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """The controller's mesh: a grid of slots, each naming the device it lives on.
 
-The port of the controller's part of ``repro/launch/mesh.py``.  The
+The port of ``repro/launch/mesh.py``'s controller mesh and debug mesh (its
+``make_production_mesh`` and TPU ``HARDWARE`` constants are the pod tools,
+not ported).  The
 reference lays its sharded arena out over a ``jax.sharding.Mesh`` of the
 controller's local devices; the port's :class:`SlotMesh` is the same grid,
 with a ``torch.device`` in each cell.  A *slot* is one cell: it holds one
@@ -23,7 +25,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["SlotMesh", "make_controller_mesh"]
+__all__ = ["SlotMesh", "make_debug_mesh", "make_controller_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -122,3 +124,16 @@ def make_controller_mesh(n_shards: int | None = None,
     for s in range(n):
         grid[s] = visible[s % len(visible)]
     return SlotMesh(grid, ("data",))
+
+
+def make_debug_mesh(data: int = 1, model: int = 1,
+                    device: str | torch.device | None = None) -> SlotMesh:
+    """A ``(data, model)`` slot mesh, axes ``("data", "model")``, every slot
+    on ``device`` (resolved as every entry point resolves it: the card unless
+    the caller asks for the CPU).  One device runs each multi-slot path of
+    the model axis, one slot at a time."""
+    dev = resolve_device(device)
+    grid = np.empty((int(data), int(model)), dtype=object)
+    for idx in np.ndindex(grid.shape):
+        grid[idx] = dev
+    return SlotMesh(grid, ("data", "model"))

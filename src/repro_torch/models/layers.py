@@ -29,9 +29,18 @@ cache.  The decode attention is the naive one (one query), its validity
 mask additive ``-1e30`` in f32 over the cache's slots.
 
 Everything here is plain torch arithmetic, as it is jnp in the reference (no
-Pallas kernel there).  The sequence-sharded decodes (``_flash_decode``,
-MLA's ``shard_map`` decode) and the expert-parallel MoE (``apply_moe_ep``)
-are slice G-2.
+Pallas kernel there).
+
+The model axis: every apply function takes the reference's ``policy=``
+(``models/sharding.ShardingPolicy``).  Where the reference only constrains
+a layout under it, the port does nothing.  Under an active policy three
+paths of the reference's run once a slot of the policy's mesh, their
+collectives as ``models/sharding`` stands them in: ``_flash_decode``
+(decode over a cache sharded along its length), MLA's absorbed decode over
+a sharded latent cache, and the expert-parallel MoE ``apply_moe_ep``, with
+its capacity-dropping dispatch body and its weights-stationary 2-D decode
+body.  Without a policy, or with an inactive one, every function takes its
+one-device path.
 """
 
 from __future__ import annotations
@@ -42,12 +51,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import ShardingPolicy
 
 __all__ = [
     "init_norm", "apply_norm", "rope_freqs", "apply_rope", "sinusoidal_embedding",
     "init_attention", "apply_attention", "init_mla", "apply_mla", "init_mlp", "apply_mlp",
-    "init_moe", "moe_aux_loss", "apply_moe_dense", "apply_moe", "init_mamba", "apply_mamba",
+    "init_moe", "moe_aux_loss", "apply_moe_dense", "apply_moe_ep", "moe_ep_kept", "apply_moe",
+    "init_mamba", "apply_mamba",
 ]
 
 _NEG = -1e30  # the reference's additive mask value
@@ -222,7 +234,8 @@ def _attn_mask(q_len: int, k_len: int, q_offset: int, mode: str, window: int,
     return torch.where(ok, zero, torch.full((), _NEG, dtype=torch.float32, device=device))
 
 
-def _sdpa_naive(q, k, v, mask, *, scale: float) -> torch.Tensor:
+def _sdpa_naive(q, k, v, mask, policy: ShardingPolicy | None = None, *,
+                scale: float) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + mask) v with the full score tensor.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, H, hd).  Scores are f32 products of
@@ -235,8 +248,8 @@ def _sdpa_naive(q, k, v, mask, *, scale: float) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _sdpa_chunked(q, k, v, *, scale: float, mode: str, window: int, q_offset: int,
-                  chunk: int) -> torch.Tensor:
+def _sdpa_chunked(q, k, v, policy: ShardingPolicy | None = None, *, scale: float, mode: str,
+                  window: int, q_offset: int, chunk: int) -> torch.Tensor:
     """Online-softmax attention over KV chunks of ``chunk`` keys.
 
     The reference's ``lax.scan`` over chunks becomes a Python loop: per
@@ -286,15 +299,16 @@ def _use_chunked(cfg: ModelConfig, q_len: int, k_len: int) -> bool:
     return not cfg.attn_naive and q_len > 1 and k_len >= cfg.attn_chunk_min_len
 
 
-def _sdpa(q, k, v, cfg: ModelConfig, *, mode: str, window: int = 0) -> torch.Tensor:
+def _sdpa(q, k, v, cfg: ModelConfig, *, mode: str, window: int = 0,
+          policy: ShardingPolicy | None = None) -> torch.Tensor:
     """Chunked or naive attention, as the reference's ``_sdpa`` chooses, at
     the scale ``1/sqrt(q's head dim)``; ``v``'s head dim may differ (MLA)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if _use_chunked(cfg, q.shape[1], k.shape[1]):
-        return _sdpa_chunked(q, k, v, scale=scale, mode=mode, window=window, q_offset=0,
-                             chunk=cfg.attn_k_chunk)
+        return _sdpa_chunked(q, k, v, policy, scale=scale, mode=mode, window=window,
+                             q_offset=0, chunk=cfg.attn_k_chunk)
     mask = _attn_mask(q.shape[1], k.shape[1], 0, mode, window, q.device)
-    return _sdpa_naive(q, k, v, mask, scale=scale)
+    return _sdpa_naive(q, k, v, mask, policy, scale=scale)
 
 
 def _ring_positions(slots: torch.Tensor, pos: torch.Tensor, L: int) -> torch.Tensor:
@@ -340,8 +354,130 @@ def _slot(pos: torch.Tensor) -> torch.Tensor:
     return pos.reshape(1).to(torch.int64)
 
 
+def _seq_sharded(policy: ShardingPolicy | None, L: int) -> bool:
+    """The reference's condition for a sequence-sharded decode over a cache
+    of ``L`` slots: an active policy whose model axis divides ``L``."""
+    return policy is not None and policy.active and L % policy.model_size == 0
+
+
+def _shard_slots(masks: dict | None, L: int, pos: torch.Tensor, ring: bool,
+                 msize: int) -> tuple[torch.Tensor, list]:
+    """What every model slot of a sequence-sharded decode needs from the
+    step's position, built once a step in its ``masks`` (or afresh without):
+    the validity of each of the cache's ``L`` global slots (``kj <= pos``,
+    or on a ring ``_ring_positions`` no more than ``L - 1`` old), and for
+    each model slot ``m``, owning global slots ``[m·L/msize, (m+1)·L/msize)``,
+    the clipped local index of the step's slot (``pos``, or ``pos % L`` on a
+    ring) and whether it lies in ``m``'s window."""
+    key = ("sharded", L, ring, msize)
+    if masks is not None and key in masks:
+        return masks[key]
+    kj = torch.arange(L, device=pos.device)
+    if ring:
+        rpos = _ring_positions(kj, pos, L)
+        valid = (pos - rpos >= 0) & (pos - rpos < L) & (rpos >= 0)
+    else:
+        valid = kj <= pos
+    slot_g = torch.remainder(pos, L) if ring else pos
+    L_loc = L // msize
+    slots = []
+    for m in range(msize):
+        local = slot_g - m * L_loc
+        slots.append((torch.clamp(local, 0, L_loc - 1).reshape(1).to(torch.int64),
+                      (local >= 0) & (local < L_loc)))
+    out = (valid, slots)
+    if masks is not None:
+        masks[key] = out
+    return out
+
+
+def _data_blocks(B: int, dsize: int) -> list[tuple[int, int]]:
+    """Each data slot's rows ``[b0, b1)`` of a batch of ``B``: the reference
+    shards the batch over the data axes where they divide it (and it is at
+    least as large), and replicates it otherwise, when one block does."""
+    if B % dsize == 0 and B >= dsize:
+        step = B // dsize
+        return [(d * step, (d + 1) * step) for d in range(dsize)]
+    return [(0, B)]
+
+
+def _write_window(window: torch.Tensor, idx: torch.Tensor, in_range: torch.Tensor,
+                  new: torch.Tensor) -> None:
+    """A slot's in-place cache update: its window's slot ``idx`` takes
+    ``new`` where the step's slot lies in the window and keeps its value
+    elsewhere (the reference's ``where(in_range, new, cur)`` update)."""
+    cur = window.index_select(1, idx)
+    window.index_copy_(1, idx, torch.where(in_range, new.to(window.dtype), cur))
+
+
+def _slot_device(grid, d: int, m: int, cache: torch.Tensor) -> torch.device:
+    """Slot ``(d, m)``'s device, which must hold the cache its window views:
+    caches are not placed per slot, so a slot computes where the cache lies."""
+    dev = grid[d, m]
+    if cache.device != dev:
+        raise ValueError(f"the cache lies on {cache.device} and slot ({d}, {m}) on {dev}: "
+                         "a sequence-sharded decode runs its slots where the cache lies")
+    return dev
+
+
+def _flash_merge(scores: list, values: list, spec: str, dtype: torch.dtype,
+                 home: torch.device) -> torch.Tensor:
+    """The merge of the slots' partial attention (the reference's collectives
+    after its per-shard scores): the ``pmax`` of the slots' maxima, each
+    slot's ``exp(s - max)``, the ``psum`` of their sums and of ``exp`` (cast
+    to ``dtype``) times the slot's values by ``spec`` in f32, divided by
+    ``max(l, 1e-30)``, in ``dtype``, heads moved after the query axis."""
+    mx = sharding.pmax([s.amax(dim=-1) for s in scores], home)
+    pexp = [torch.exp(s - mx.to(s.device)[..., None]) for s in scores]
+    l = sharding.psum([pe.sum(dim=-1) for pe in pexp], home)
+    pv = sharding.psum([torch.einsum(spec, pe.to(dtype), v).float()
+                        for pe, v in zip(pexp, values)], home)
+    return (pv / torch.clamp(l[..., None], min=1e-30)).to(dtype).transpose(1, 2)
+
+
+def _flash_decode(q, ck, cv, k_new, v_new, pos, *, mode: str, window: int, n_rep: int,
+                  policy: ShardingPolicy, masks: dict | None = None):
+    """Flash decoding over a cache sharded along its length, once a slot.
+
+    The reference's ``shard_map`` body: model slot ``m`` owns the cache's
+    slots ``[m·L_loc, (m+1)·L_loc)`` as a view ``ck[:, m·L_loc:(m+1)·L_loc]``
+    (data slot ``d`` its block of the batch, where the data axes divide it);
+    the slot whose window holds the step's slot writes the step's key and
+    value there in place (every other slot writes back what it holds), then
+    each computes its partial: f32 scores at ``1/sqrt(hd)``, ``-1e30`` where
+    invalid; :func:`_flash_merge` merges them.  q: (B, 1, H, hd); ck/cv: (B,
+    L, KVH, hd); k_new/v_new: (B, 1, KVH, hd).  Returns the output (B, 1, H,
+    hd); the cache is written in place.
+    """
+    grid = sharding.slot_grid(policy)
+    msize = grid.shape[1]
+    L = ck.shape[1]
+    L_loc = L // msize
+    ring = mode == "sliding" and L == window
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    valid, slots = _shard_slots(masks, L, pos, ring, msize)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
+    outs = []
+    for d, (b0, b1) in enumerate(_data_blocks(q.shape[0], grid.shape[0])):
+        home = grid[d, 0]
+        scores, values = [], []
+        for m, (idx, in_range) in enumerate(slots):
+            dev = _slot_device(grid, d, m, ck)
+            a, b = m * L_loc, (m + 1) * L_loc
+            wk, wv = ck[b0:b1, a:b], cv[b0:b1, a:b]
+            _write_window(wk, idx.to(dev), in_range.to(dev), k_new[b0:b1].to(dev))
+            _write_window(wv, idx.to(dev), in_range.to(dev), v_new[b0:b1].to(dev))
+            kk = _repeat_kv(wk.to(q.dtype), n_rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", q[b0:b1].to(dev).float(), kk.float()) * scale
+            scores.append(torch.where(valid[a:b].to(dev), s, neg.to(dev)))
+            values.append(_repeat_kv(wv.to(q.dtype), n_rep))
+        outs.append(_flash_merge(scores, values, "bhqk,bkhd->bhqd", q.dtype, home))
+    return sharding.all_gather(outs, 0, grid[0, 0])
+
+
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                    mode: str, kv_cache: dict | None = None,
+                    mode: str, policy: ShardingPolicy | None = None,
+                    kv_cache: dict | None = None,
                     decode_pos: torch.Tensor | None = None, decode_masks: dict | None = None,
                     x_cross: torch.Tensor | None = None) -> tuple[torch.Tensor, dict | None]:
     """Self-attention, or cross-attention from ``x`` to ``x_cross`` (whisper's
@@ -357,6 +493,10 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: to
     attention with a cache attends to the memory as without one and leaves
     the cache as it is.  Returns ``(y, kv_cache)``: the cache, updated in
     place, or ``None`` without one.
+
+    Under an active ``policy`` that does not shard the KV heads, a decode
+    step over a cache whose length the model axis divides takes
+    :func:`_flash_decode`, as the reference routes it.
     """
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
@@ -368,7 +508,13 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: to
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if kv_cache is not None and x_cross is None:
+    if (kv_cache is not None and x_cross is None and _seq_sharded(policy, kv_cache["k"].shape[1])
+            and not policy.shard_kv_heads):
+        pos = torch.as_tensor(decode_pos, device=x.device)
+        out = _flash_decode(q, kv_cache["k"], kv_cache["v"], k, v, pos, mode=mode,
+                            window=cfg.sliding_window, n_rep=n_rep, policy=policy,
+                            masks=decode_masks)
+    elif kv_cache is not None and x_cross is None:
         pos = torch.as_tensor(decode_pos, device=x.device)
         ck, cv = kv_cache["k"], kv_cache["v"]
         L = ck.shape[1]
@@ -380,7 +526,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: to
                           _step_mask(decode_masks, L, pos, ring), scale=1.0 / math.sqrt(hd))
     else:
         out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), cfg, mode=mode,
-                    window=cfg.sliding_window)
+                    window=cfg.sliding_window, policy=policy)
     out = out.reshape(B, -1, H * hd)
     return out @ p["wo"].to(out.dtype), kv_cache
 
@@ -427,8 +573,44 @@ def _mla_kv_latent(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.
     return c_kv, k_pe
 
 
+def _mla_sharded_decode(q_lat, q_rope, ckv, kpe, c_new, kpe_new, pos, *, scale: float,
+                        policy: ShardingPolicy, masks: dict | None = None) -> torch.Tensor:
+    """MLA's absorbed decode over a latent cache sharded along its length,
+    once a slot (the reference's ``shard_map`` body): model slot ``m`` owns
+    ``ckv[:, m·L_loc:(m+1)·L_loc]`` and ``kpe``'s same window, the slot
+    holding ``pos`` writes the step's latent and rope key in place, each
+    computes f32 scores ``q_lat·ckv + q_rope·kpe`` at ``scale`` (``-1e30``
+    past ``pos``); :func:`_flash_merge` merges them with the latent read-out
+    ``exp·ckv``.  Returns the latent read-out (B, 1, H, rkv)."""
+    grid = sharding.slot_grid(policy)
+    msize = grid.shape[1]
+    L = ckv.shape[1]
+    L_loc = L // msize
+    valid, slots = _shard_slots(masks, L, pos, False, msize)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=q_lat.device)
+    outs = []
+    for d, (b0, b1) in enumerate(_data_blocks(q_lat.shape[0], grid.shape[0])):
+        home = grid[d, 0]
+        scores, lats = [], []
+        for m, (idx, in_range) in enumerate(slots):
+            dev = _slot_device(grid, d, m, ckv)
+            a, b = m * L_loc, (m + 1) * L_loc
+            wc, wp = ckv[b0:b1, a:b], kpe[b0:b1, a:b]
+            _write_window(wc, idx.to(dev), in_range.to(dev), c_new[b0:b1].to(dev))
+            _write_window(wp, idx.to(dev), in_range.to(dev), kpe_new[b0:b1].to(dev))
+            wc_c = wc.to(q_lat.dtype)
+            s = (torch.einsum("bqhr,bkr->bhqk", q_lat[b0:b1].to(dev).float(), wc_c.float())
+                 + torch.einsum("bqhd,bkd->bhqk", q_rope[b0:b1].to(dev).float(),
+                                wp.to(q_lat.dtype).float())) * scale
+            scores.append(torch.where(valid[a:b].to(dev), s, neg.to(dev)))
+            lats.append(wc_c)
+        outs.append(_flash_merge(scores, lats, "bhqk,bkr->bhqr", q_lat.dtype, home))
+    return sharding.all_gather(outs, 0, grid[0, 0])
+
+
 def apply_mla(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-              mode: str, kv_cache: dict | None = None, decode_pos: torch.Tensor | None = None,
+              mode: str, policy: ShardingPolicy | None = None, kv_cache: dict | None = None,
+              decode_pos: torch.Tensor | None = None,
               decode_masks: dict | None = None) -> tuple[torch.Tensor, dict | None]:
     """Multi-head latent attention.  ``mode`` is accepted as the reference
     accepts it; MLA is always causal.
@@ -441,8 +623,10 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Te
     *absorbed* form.  The step's latent and rope key go to slot ``pos`` in
     place; the scores are ``(q_nope W_UK)·ckv + q_rope·kpe`` straight from the
     latent, the read-out ``probs·ckv`` stays in latent space and ``W_UV``
-    expands it.  It rounds differently from the expanded prefill.  Returns
-    ``(y, kv_cache)``.
+    expands it.  It rounds differently from the expanded prefill.  Under an
+    active ``policy`` whose model axis divides the cache's length, the
+    absorbed decode runs once a slot (:func:`_mla_sharded_decode`), as the
+    reference routes it.  Returns ``(y, kv_cache)``.
     """
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -455,7 +639,16 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Te
         v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(B, S, H, dv)
         q_eff = torch.cat([q_nope, q_rope], dim=-1)
         k_eff = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
-        out = _sdpa(q_eff, k_eff, v, cfg, mode="causal")
+        out = _sdpa(q_eff, k_eff, v, cfg, mode="causal", policy=policy)
+    elif _seq_sharded(policy, kv_cache["ckv"].shape[1]):
+        pos = torch.as_tensor(decode_pos, device=x.device)
+        wk_b = p["wk_b"].to(x.dtype).reshape(rkv, H, dn)
+        wv_b = p["wv_b"].to(x.dtype).reshape(rkv, H, dv)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, wk_b)
+        o_lat = _mla_sharded_decode(q_lat, q_rope, kv_cache["ckv"], kv_cache["kpe"], c_kv, k_pe,
+                                    pos, scale=1.0 / math.sqrt(dn + dr), policy=policy,
+                                    masks=decode_masks)
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b)
     else:
         pos = torch.as_tensor(decode_pos, device=x.device)
         ckv, kpe = kv_cache["ckv"], kv_cache["kpe"]
@@ -500,7 +693,8 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: int | None = No
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              policy: ShardingPolicy | None = None) -> torch.Tensor:
     """``w_down(silu(x w_gate) * x w_up)``, or ``w_down(gelu_tanh(x w_up + b))``."""
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
@@ -589,9 +783,200 @@ def apply_moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return y, aux
 
 
-def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """One device: the dense MoE (the reference's choice without an active
-    sharding policy; its expert-parallel path is slice G-2)."""
+def _ep_capacity(cfg: ModelConfig, T: int, dsize: int) -> int:
+    """The reference's static capacity per expert and data block:
+    ``max(ceil(T_loc · top_k / E · capacity_factor), top_k)``, ``T_loc =
+    max(T // dsize, 1)``."""
+    T_loc = max(T // dsize, 1)
+    return max(int(math.ceil(T_loc * cfg.top_k / cfg.padded_n_experts * cfg.capacity_factor)),
+               cfg.top_k)
+
+
+def _ep_routes(idx: torch.Tensor, m: int, E_loc: int, C: int):
+    """Model slot ``m``'s dispatch of one data block's routes ``idx`` (t_loc,
+    top_k), as the reference ranks them: the assignments ``t·top_k + j`` to
+    ``m``'s experts ``[m·E_loc, (m+1)·E_loc)``, stably sorted by local expert
+    (the others last); an assignment's rank is its place among its expert's;
+    one ranked below ``C`` is kept, at slot ``local_e·C + rank``, and every
+    other goes to the overflow slot ``E_loc·C``.  Returns ``(flat_t, keep,
+    slot)`` over the ``t_loc·top_k`` assignments."""
+    t_loc, top_k = idx.shape
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(t_loc, device=idx.device).repeat_interleave(top_k)
+    local_e = flat_e - m * E_loc
+    is_local = (local_e >= 0) & (local_e < E_loc)
+    sort_key = torch.where(is_local, local_e, torch.full_like(local_e, E_loc))
+    order = torch.argsort(sort_key, stable=True)
+    sorted_e = sort_key[order]
+    counts = torch.zeros((E_loc + 1,), dtype=torch.int64, device=idx.device).index_add(
+        0, sorted_e, torch.ones_like(sorted_e))
+    starts = torch.cumsum(counts, dim=0) - counts
+    ranks_sorted = torch.arange(sorted_e.shape[0], device=idx.device) - starts[sorted_e]
+    ranks = torch.empty_like(ranks_sorted).scatter(0, order, ranks_sorted)
+    keep = is_local & (ranks < C)
+    slot = torch.where(keep, local_e * C + ranks, torch.full_like(ranks, E_loc * C))
+    return flat_t, keep, slot
+
+
+def _ep_decode_layout(x: torch.Tensor, cfg: ModelConfig, policy: ShardingPolicy, grid) -> bool:
+    """The reference's choice of the weights-stationary 2-D decode body: one
+    token a sequence, a serving FSDP policy, and the experts and the batch
+    dividing over the slots."""
+    dsize, msize = grid.shape
+    B, S, _ = x.shape
+    E = cfg.padded_n_experts
+    return (S == 1 and policy.serving and policy.fsdp_params
+            and E % (msize * dsize) == 0 and B % dsize == 0)
+
+
+def _moe_ep_dispatch(p: dict, x: torch.Tensor, cfg: ModelConfig, grid, E_loc: int, C: int):
+    """The dispatch body, once a slot: data slot ``d`` routes its block of
+    the batch (the router, the aux loss); model slot ``m`` gathers its kept
+    assignments' tokens into an ``(E_loc, C, D)`` buffer in slot space, runs
+    its experts' batched products, and scatter-adds the gated outputs back to
+    the tokens; the partials are summed over model slots in ``x``'s dtype.
+    FSDP's all-gather of the expert weights over the data axes is the whole
+    tensor here (weights are not placed per slot), of which ``m`` reads its
+    block.  Out-of-place ``scatter``/``index_add``, so gradients pass.
+
+    The aux loss: the reference's ``out_specs=P()`` over a value that varies
+    across data slots returns data slot 0's, and its gradient is that of the
+    mean over the data slots; the port returns slot 0's value with the mean's
+    gradient."""
+    dsize, msize = grid.shape
+    B, S, D = x.shape
+    if B % dsize:
+        raise ValueError(f"a batch of {B} does not divide over {dsize} data slots")
+    B_loc = B // dsize
+    n_slots = E_loc * C
+    ys, auxes = [], []
+    for d in range(dsize):
+        home = grid[d, 0]
+        xb = x[d * B_loc:(d + 1) * B_loc].to(home)
+        xf = xb.reshape(-1, D)
+        t_loc = xf.shape[0]
+        # the router's result is the same on every model slot of the block
+        probs, gates, idx = _router_probs({"router": p["router"].to(home)}, xf, cfg)
+        auxes.append(moe_aux_loss(probs, idx, cfg))
+        flat_g = gates.reshape(-1)
+        parts = []
+        for m in range(msize):
+            dev = grid[d, m]
+            flat_t, keep, slot = _ep_routes(idx.to(dev), m, E_loc, C)
+            g = torch.where(keep, flat_g.to(dev), torch.zeros((), device=dev))
+            tok = torch.full((n_slots + 1,), t_loc, dtype=torch.int64, device=dev).scatter(
+                0, slot, flat_t)[:n_slots]
+            gate = torch.zeros((n_slots + 1,), dtype=torch.float32, device=dev).scatter(
+                0, slot, g)[:n_slots]
+            valid = torch.zeros((n_slots + 1,), dtype=torch.bool, device=dev).scatter(
+                0, slot, keep)[:n_slots]
+            xs = xf.to(dev)
+            xf_pad = torch.cat([xs, xs.new_zeros((1, D))], dim=0)
+            buf = (xf_pad[tok] * valid[:, None].to(xs.dtype)).reshape(E_loc, C, D)
+            e0, e1 = m * E_loc, (m + 1) * E_loc
+            h = torch.einsum("ecd,edf->ecf", buf, p["we_gate"][e0:e1].to(dev).to(xs.dtype))
+            u = torch.einsum("ecd,edf->ecf", buf, p["we_up"][e0:e1].to(dev).to(xs.dtype))
+            eo = torch.einsum("ecf,efd->ecd", F.silu(h) * u,
+                              p["we_down"][e0:e1].to(dev).to(xs.dtype))
+            contrib = eo.reshape(n_slots, D) * gate[:, None].to(eo.dtype)
+            parts.append(torch.zeros((t_loc + 1, D), dtype=xs.dtype, device=dev).index_add(
+                0, tok, contrib)[:t_loc])
+        ys.append(sharding.psum(parts, home).reshape(xb.shape))
+    y = sharding.all_gather(ys, 0, grid[0, 0])
+    if dsize == 1:
+        return y, auxes[0]
+    mean = sharding.pmean(auxes, grid[0, 0])
+    return y, auxes[0].detach() + (mean - mean.detach())
+
+
+def _moe_ep_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, grid):
+    """The weights-stationary 2-D decode body, once a slot: every slot
+    gathers the whole batch's tokens (the data blocks in slot order) and
+    routes them; slot ``(m, d)`` owns the experts ``[e0, e0 + E_loc2)``,
+    ``e0 = (m·dsize + d)·E_loc2``, ``E_loc2 = E / (msize·dsize)``, and adds
+    each token's gated outputs of those it routes to; the partials are summed
+    over every slot, model-major, in ``x``'s dtype.  The aux loss is the
+    whole batch's."""
+    dsize, msize = grid.shape
+    B, S, D = x.shape
+    E_loc2 = cfg.padded_n_experts // (msize * dsize)
+    home = grid[0, 0]
+    xf = x.to(home).reshape(-1, D)
+    probs, gates, idx = _router_probs({"router": p["router"].to(home)}, xf, cfg)
+    aux = moe_aux_loss(probs, idx, cfg)
+    parts = []
+    for m in range(msize):
+        for d in range(dsize):
+            dev = grid[d, m]
+            e0 = (m * dsize + d) * E_loc2
+            ids = torch.arange(e0, e0 + E_loc2, device=dev)
+            sel = idx.to(dev)[:, :, None] == ids[None, None, :]
+            gate_e = torch.where(sel, gates.to(dev)[:, :, None], 0.0).sum(dim=1)
+            xs = xf.to(dev)
+            wg, wu, wd = (p[k][e0:e0 + E_loc2].to(dev).to(xs.dtype)
+                          for k in ("we_gate", "we_up", "we_down"))
+            h = torch.einsum("td,edf->tef", xs, wg)
+            u = torch.einsum("td,edf->tef", xs, wu)
+            parts.append(torch.einsum("tef,efd->td",
+                                      F.silu(h) * u * gate_e.to(h.dtype)[:, :, None], wd))
+    return sharding.psum(parts, home).reshape(B, S, D), aux
+
+
+def apply_moe_ep(p: dict, x: torch.Tensor, cfg: ModelConfig, policy: ShardingPolicy):
+    """Expert-parallel MoE over the policy's slots (the reference's
+    ``shard_map`` over the model axis), plus the shared experts' MLP.
+
+    One token a sequence under a serving FSDP policy whose slots divide the
+    experts and the batch: the weights-stationary 2-D decode body
+    (:func:`_moe_ep_decode`, no capacity).  Otherwise the dispatch body
+    (:func:`_moe_ep_dispatch`): each model slot owns ``E / model_size``
+    experts, each data slot's block of the batch is ranked on its own, and
+    an expert takes at most ``C`` (:func:`_ep_capacity`) of a block's
+    assignments; the rest are dropped.  Returns ``(y, aux)``."""
+    grid = sharding.slot_grid(policy)
+    dsize, msize = grid.shape
+    E = cfg.padded_n_experts
+    if E % msize:
+        raise ValueError(f"{E} experts do not divide over {msize} model slots")
+    B, S, _ = x.shape
+    if _ep_decode_layout(x, cfg, policy, grid):
+        y, aux = _moe_ep_decode(p, x, cfg, grid)
+    else:
+        y, aux = _moe_ep_dispatch(p, x, cfg, grid, E // msize, _ep_capacity(cfg, B * S, dsize))
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x, cfg, policy)
+    return y, aux
+
+
+def moe_ep_kept(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                policy: ShardingPolicy) -> torch.Tensor:
+    """Which of the ``(B·S, top_k)`` routes :func:`apply_moe_ep` keeps: under
+    the dispatch body those ranked within capacity on their expert's model
+    slot and data block, under the 2-D decode body every one."""
+    grid = sharding.slot_grid(policy)
+    dsize, msize = grid.shape
+    B, S, D = x.shape
+    if _ep_decode_layout(x, cfg, policy, grid):
+        return torch.ones((B * S, cfg.top_k), dtype=torch.bool, device=x.device)
+    E_loc = cfg.padded_n_experts // msize
+    C = _ep_capacity(cfg, B * S, dsize)
+    kept = []
+    with torch.no_grad():
+        for xb in x.reshape(dsize, -1, D):
+            _, _, idx = _router_probs({"router": p["router"]}, xb, cfg)
+            keep = torch.zeros(idx.numel(), dtype=torch.bool, device=x.device)
+            for m in range(msize):
+                keep = keep | _ep_routes(idx, m, E_loc, C)[1]
+            kept.append(keep.reshape(idx.shape))
+    return torch.cat(kept, dim=0)
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              policy: ShardingPolicy | None = None):
+    """The expert-parallel MoE under an active policy (:func:`apply_moe_ep`),
+    the dense MoE otherwise, as the reference routes it."""
+    if policy is not None and policy.active:
+        return apply_moe_ep(p, x, cfg, policy)
     return apply_moe_dense(p, x, cfg)
 
 
@@ -684,6 +1069,7 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.
 
 
 def apply_mamba(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                policy: ShardingPolicy | None = None,
                 cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
     """Mamba2 mixer: in-projection, causal conv, the SSM plus the ``D`` skip,
     the gated RMS norm ``norm(y · silu(z))`` in f32, out-projection.

@@ -16,6 +16,14 @@ Where the reference runs ``lax.scan`` over a segment's leading axis, the
 port loops over it in Python, in the same layer order.  ``cfg.remat`` is not
 acted on (it changes no number).
 
+Every entry point takes the reference's ``policy=``
+(``models/sharding.ShardingPolicy``), threaded to every layer as the
+reference threads it: under an active policy the MoE takes the
+expert-parallel path and a decode step the sequence-sharded ones
+(``models/layers.py``); where the reference only constrains a layout
+(``constrain``/``seq_constrain``, which change no value), the port does
+nothing.
+
 Every family of the reference trains and decodes: the dense decoder
 (``ATTN``/``SWA``, with or without a modality ``frontend_proj``), MoE and
 MLA with MTP, Mamba2, the Mamba2 + shared-attention hybrid and the
@@ -26,7 +34,8 @@ and writes into it in place: each layer gets its stacked leaf's view
 Public entry points:
 
 * ``init_params(generator, cfg, device)``
-* ``encode(params, frames, cfg)`` — the audio encoder over frame embeddings
+* ``encode(params, frames, cfg, policy=None)`` — the audio encoder over
+  frame embeddings
 * ``forward(params, tokens, cfg, ...)`` — train/prefill logits, or a decode
   step's with ``caches``
 * ``decode_step(params, tokens, caches, decode_pos, cfg)`` — one serve step
@@ -46,6 +55,7 @@ from repro_torch.models import layers
 from repro_torch.models.config import (
     ATTN, MAMBA, SHARED_ATTN, SWA, XATTN, LayerSpec, ModelConfig, Segment, plan_segments,
 )
+from repro_torch.models.sharding import ShardingPolicy
 from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "encode", "forward", "decode_step", "lm_loss"]
@@ -146,7 +156,8 @@ def _encoder_segment(cfg: ModelConfig) -> Segment:
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
-                 positions: torch.Tensor, shared_block: dict | None = None,
+                 positions: torch.Tensor, policy: ShardingPolicy | None = None,
+                 shared_block: dict | None = None,
                  memory: torch.Tensor | None = None, cache: dict | None = None,
                  decode_pos: torch.Tensor | None = None, decode_masks: dict | None = None):
     """One layer; returns ``(x, aux)``, ``aux`` the MoE load-balance loss (0
@@ -166,43 +177,45 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
         sb = shared_block
         h = layers.apply_norm(sb["norm1"], x, cfg)
         a, _ = layers.apply_attention(sb["attn"], h, cfg, positions=positions, mode="causal",
+                                      policy=policy,
                                       kv_cache=None if cache is None else cache["attn"],
                                       decode_pos=decode_pos, decode_masks=decode_masks)
         x = x + a * p["adapter_scale"].to(x.dtype)
         h = layers.apply_norm(sb["norm2"], x, cfg)
-        return x + layers.apply_mlp(sb["mlp"], h, cfg), aux
+        return x + layers.apply_mlp(sb["mlp"], h, cfg, policy), aux
     if spec.kind == MAMBA:
         h = layers.apply_norm(p["norm1"], x, cfg)
-        y, _ = layers.apply_mamba(p["mamba"], h, cfg,
+        y, _ = layers.apply_mamba(p["mamba"], h, cfg, policy=policy,
                                   cache=None if cache is None else cache["mamba"])
         return x + y, aux
 
     mode = "sliding" if spec.kind == SWA else "causal"
     h = layers.apply_norm(p["norm1"], x, cfg)
     attend = layers.apply_mla if cfg.attn_impl == "mla" else layers.apply_attention
-    a, _ = attend(p["attn"], h, cfg, positions=positions, mode=mode,
+    a, _ = attend(p["attn"], h, cfg, positions=positions, mode=mode, policy=policy,
                   kv_cache=None if cache is None else cache["attn"], decode_pos=decode_pos,
                   decode_masks=decode_masks)
     x = x + a
     if spec.kind == XATTN:
         h = layers.apply_norm(p["norm_x"], x, cfg)
         a, _ = layers.apply_attention(p["xattn"], h, cfg, positions=positions, mode="full",
-                                      x_cross=memory)
+                                      policy=policy, x_cross=memory)
         x = x + a
     h = layers.apply_norm(p["norm2"], x, cfg)
     if "moe" in p:
-        y, aux = layers.apply_moe(p["moe"], h, cfg)
+        y, aux = layers.apply_moe(p["moe"], h, cfg, policy)
         x = x + y
     elif "mlp" in p:
-        x = x + layers.apply_mlp(p["mlp"], h, cfg)
+        x = x + layers.apply_mlp(p["mlp"], h, cfg, policy)
     return x, aux
 
 
 def _run_segments(params_segments: list, x: torch.Tensor, cfg: ModelConfig,
                   segs: list[Segment], *, positions: torch.Tensor,
-                  shared_block: dict | None = None, memory: torch.Tensor | None = None,
-                  caches: list | None = None, decode_pos: torch.Tensor | None = None,
-                  decode_masks: dict | None = None, encoder: bool = False):
+                  policy: ShardingPolicy | None = None, shared_block: dict | None = None,
+                  memory: torch.Tensor | None = None, caches: list | None = None,
+                  decode_pos: torch.Tensor | None = None, decode_masks: dict | None = None,
+                  encoder: bool = False):
     """Apply every segment: for each step of its leading axis, its unit in
     order.  Returns ``(x, aux)``, the MoE aux summed over the layers.  With
     ``caches``, each layer gets its entry's views and writes them in place.
@@ -219,7 +232,7 @@ def _run_segments(params_segments: list, x: torch.Tensor, cfg: ModelConfig,
             for li, spec in enumerate(seg.unit):
                 if encoder:
                     spec = dataclasses.replace(spec, kind=ATTN)
-                x, a = _apply_layer(p_unit[li], x, cfg, spec, positions=positions,
+                x, a = _apply_layer(p_unit[li], x, cfg, spec, positions=positions, policy=policy,
                                     shared_block=shared_block, memory=memory,
                                     cache=None if c_unit is None else c_unit[li],
                                     decode_pos=decode_pos, decode_masks=decode_masks)
@@ -243,7 +256,8 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            policy: ShardingPolicy | None = None) -> torch.Tensor:
     x = layers.apply_norm(params["final_norm"], x, cfg)
     if cfg.tie_embeddings or "lm_head" not in params:
         w = params["embed"].to(x.dtype).T
@@ -264,7 +278,8 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+           policy: ShardingPolicy | None = None) -> torch.Tensor:
     """The audio encoder over stubbed (precomputed) frame embeddings
     ``(B, S_enc, frontend_dim)``: ``frontend_proj``, sinusoidal positions,
     the encoder's layers (causal, as in the reference) and its final norm."""
@@ -273,7 +288,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     x = frames.to(cfg.dtype) @ params["frontend_proj"].to(cfg.dtype)
     x = x + layers.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     x, _ = _run_segments(enc["segments"], x, cfg, [_encoder_segment(cfg)],
-                         positions=positions, encoder=True)
+                         positions=positions, policy=policy, encoder=True)
     return layers.apply_norm(enc["final_norm"], x, cfg)
 
 
@@ -283,6 +298,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            policy: ShardingPolicy | None = None,
             prefix_embeds: torch.Tensor | None = None, memory: torch.Tensor | None = None,
             frames: torch.Tensor | None = None, caches: list | None = None,
             decode_pos: int | torch.Tensor | None = None, return_hidden: bool = False):
@@ -325,16 +341,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     if cfg.is_encoder_decoder and memory is None:
         if frames is None:
             raise AssertionError("enc-dec model needs frames or memory")
-        memory = encode(params, frames, cfg)
+        memory = encode(params, frames, cfg, policy)
 
     x, aux = _run_segments(params["segments"], x, cfg, plan_segments(cfg), positions=positions,
-                           shared_block=params.get("shared_block"), memory=memory,
+                           policy=policy, shared_block=params.get("shared_block"), memory=memory,
                            caches=caches, decode_pos=decode_pos,
                            decode_masks=None if caches is None else {})
 
     if prefix_embeds is not None:
         x = x[:, prefix_embeds.shape[1]:]
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, x, cfg, policy)
     if return_hidden:
         return logits, caches, aux, x
     return logits, caches, aux
@@ -342,13 +358,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: list,
                 decode_pos: int | torch.Tensor, cfg: ModelConfig, *,
-                memory: torch.Tensor | None = None):
+                policy: ShardingPolicy | None = None, memory: torch.Tensor | None = None):
     """One serve step, under ``torch.no_grad()``: the next-token logits
     ``(B, 1, Vp)`` of ``tokens`` (B, 1) at position ``decode_pos``, and the
     caches (the same tree, updated in place)."""
     with torch.no_grad():
-        logits, caches, _ = forward(params, tokens, cfg, memory=memory, caches=caches,
-                                    decode_pos=decode_pos)
+        logits, caches, _ = forward(params, tokens, cfg, policy=policy, memory=memory,
+                                    caches=caches, decode_pos=decode_pos)
     return logits, caches
 
 
@@ -358,7 +374,8 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -ll.mean()
 
 
-def lm_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
+            policy: ShardingPolicy | None = None) -> torch.Tensor:
     """Causal LM loss: mean next-token cross-entropy in f32, plus
     ``router_aux_coef · aux`` with experts, plus deepseek's MTP term
     ``0.3 · xent`` of the token after next, predicted from
@@ -367,7 +384,7 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     batch: ``{"tokens": (B, S), "labels": (B, S)}`` int64, plus an optional
     ``"prefix_embeds"`` (VLM) or ``"frames"`` (audio encoder-decoder).
     """
-    logits, _, aux, h = forward(params, batch["tokens"], cfg,
+    logits, _, aux, h = forward(params, batch["tokens"], cfg, policy=policy,
                                 prefix_embeds=batch.get("prefix_embeds"),
                                 frames=batch.get("frames"), return_hidden=True)
     loss = _xent(logits, batch["labels"])
@@ -381,9 +398,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
         h2 = hcat @ mtp["proj"].to(hcat.dtype)
         positions = torch.arange(batch["tokens"].shape[1], device=h2.device)[None, :]
         h2, _ = _apply_layer(tree_map(lambda a: a[0], mtp["layer"]), h2, cfg,
-                             LayerSpec(kind=ATTN), positions=positions)
+                             LayerSpec(kind=ATTN), positions=positions, policy=policy)
         h2 = layers.apply_norm(mtp["final_norm"], h2, cfg)
-        logits2 = _logits(params, h2, cfg)
+        logits2 = _logits(params, h2, cfg, policy)
         # position t predicts label t+1
         loss = loss + 0.3 * _xent(logits2[:, :-1], batch["labels"][:, 1:])
     return loss

@@ -27,6 +27,10 @@ template sizes and of the switch to the rank-select past 64 rows, and at
 full width; each of quantize and the trimmed mean one device kernel a call.
 The robust rules' sorts (both medians, both trimmed means' plain versions)
 equal the host's bit for bit with a negative and a positive NaN in live rows.
+The model axis: a sharded decode step of reduced gemma3-4b over 8 slots of
+the card shows no memcpy to the profiler and matches the host; the
+expert-parallel MoE's dispatch and 2-D decode bodies, MLA's sharded decode,
+each on slots of the card against the host at rtol 1e-4 / atol 1e-5.
 The column-sharded arena: kernels 1, 5 and 6 once a slot on four shards of
 the 10m arena, one card, bit-identical to one launch on the whole arena; the
 sharded scatter bit-identical to the unsharded one; a sharded sync federation
@@ -1111,3 +1115,119 @@ def test_sharded_sync_round_on_the_card_equals_the_unsharded_round(cuda_device):
         assert d.controller.arena.sharded == bool(shards)
         out.append(d.controller.global_buffer)
     assert torch.equal(out[0].view(torch.int32), out[1].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the model axis (slice G-2): the per-slot bodies on one card
+# ---------------------------------------------------------------------------
+
+
+def _reduced_f32(arch, **kw):
+    from repro_torch.configs import get_reduced
+
+    return dataclasses.replace(get_reduced(arch), dtype=torch.float32, **kw)
+
+
+def _debug_policy(cfg, shape, dev, **kw):
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.sharding import make_policy
+
+    return make_policy(cfg, make_debug_mesh(*shape, device=dev), **kw)
+
+
+def test_sharded_gemma3_decode_step_on_the_card_shows_no_memcpy(cuda_device):
+    """Reduced gemma3-4b (34 layers) decoding over 8 model slots of the card
+    (every layer's ``_flash_decode``: its 16-slot rings and 32-slot global
+    caches split 8 ways), the position a device tensor built once: the
+    profiler sees device kernels and no memcpy in a step; every step's
+    logits equal the host's at rtol 1e-4 / atol 1e-5 (f32, TF32 off); the
+    cache written in place."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import kvcache
+    from repro_torch.tree import flatten
+
+    full_f32()
+    cfg = _reduced_f32("gemma3-4b", n_layers=34)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 20)))
+    logits = {}
+    for name, dev in (("host", torch.device("cpu")), ("card", cuda_device)):
+        params = tree_map(lambda t: t.to(dev), host)
+        pol = _debug_policy(cfg, (1, 8), dev)
+        assert not pol.shard_kv_heads
+        cache = kvcache.init_cache(cfg, 4, 32, dtype=torch.float32, device=dev)
+        ptrs = [t.data_ptr() for t in flatten(cache)[0]]
+        pos = [torch.full((), t, dtype=torch.int64, device=dev) for t in range(20)]
+        logits[name] = torch.cat([transformer.decode_step(
+            params, tokens[:, t:t + 1].to(dev), cache, pos[t], cfg, policy=pol)[0].cpu()
+            for t in range(19)], dim=1)
+        assert [t.data_ptr() for t in flatten(cache)[0]] == ptrs
+    last = tokens[:, -1:].to(cuda_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        transformer.decode_step(params, last, cache, pos[19], cfg, policy=pol)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and not [n for n in names if "memcpy" in n.lower()], names
+    V = cfg.vocab_size
+    np.testing.assert_allclose(logits["card"][..., :V].numpy(), logits["host"][..., :V].numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["dispatch_2x2", "dispatch_1x4", "decode_2x4"])
+def test_moe_ep_on_the_card_matches_the_host(cuda_device, case):
+    """``apply_moe_ep`` on slots of the card against the host: the dispatch
+    body over (2, 2) and (1, 4) on reduced qwen2-moe with 8 experts (capacity
+    drops routes: the same kept routes), the weights-stationary 2-D decode
+    body over (2, 4) with FSDP and serving; output at rtol 1e-4 / atol 1e-5
+    of its largest value, the aux loss at 1e-5, f32 with TF32 off."""
+    from repro_torch.models import layers
+
+    full_f32()
+    cfg = _reduced_f32("qwen2-moe-a2.7b", n_experts=8)
+    p = layers.init_moe(torch.Generator().manual_seed(0), cfg)
+    S = 1 if case.startswith("decode") else 16
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((4, S, cfg.d_model),
+                                                                    dtype=np.float32))
+    shape = {"dispatch_2x2": (2, 2), "dispatch_1x4": (1, 4), "decode_2x4": (2, 4)}[case]
+    kw = dict(fsdp=True, serving=True) if case.startswith("decode") else {}
+    out = {}
+    for name, dev in (("host", torch.device("cpu")), ("card", cuda_device)):
+        pol = _debug_policy(cfg, shape, dev, **kw)
+        pd = tree_map(lambda t: t.to(dev), p)
+        with torch.no_grad():
+            y, aux = layers.apply_moe_ep(pd, x.to(dev), cfg, pol)
+            kept = layers.moe_ep_kept(pd, x.to(dev), cfg, pol)
+        out[name] = (y.cpu(), aux.cpu(), kept.cpu())
+    scale = float(out["host"][0].abs().max())
+    np.testing.assert_allclose(out["card"][0].numpy(), out["host"][0].numpy(), rtol=1e-4,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(float(out["card"][1]), float(out["host"][1]), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(out["card"][2], out["host"][2])
+    if case == "dispatch_2x2":
+        assert not bool(out["card"][2].all())  # capacity dropped a route
+
+
+def test_sharded_mla_and_2d_ep_decode_on_the_card_match_the_host(cuda_device):
+    """Reduced deepseek-v3 (MTP off) decoding under a (2, 2) serving FSDP
+    policy on the card: MLA's sharded decode and the 2-D EP decode, every
+    step's logits against the host's at rtol 1e-4 / atol 1e-5."""
+    from repro_torch.models import kvcache
+
+    full_f32()
+    cfg = _reduced_f32("deepseek-v3-671b", mtp_depth=0)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 12)))
+    logits = {}
+    for name, dev in (("host", torch.device("cpu")), ("card", cuda_device)):
+        params = tree_map(lambda t: t.to(dev), host)
+        pol = _debug_policy(cfg, (2, 2), dev, fsdp=True, serving=True)
+        cache = kvcache.init_cache(cfg, 4, 16, dtype=torch.float32, device=dev)
+        logits[name] = torch.cat([transformer.decode_step(
+            params, tokens[:, t:t + 1].to(dev), cache, t, cfg, policy=pol)[0].cpu()
+            for t in range(12)], dim=1)
+    V = cfg.vocab_size
+    np.testing.assert_allclose(logits["card"][..., :V].numpy(), logits["host"][..., :V].numpy(),
+                               rtol=1e-4, atol=1e-5)

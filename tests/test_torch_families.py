@@ -105,6 +105,15 @@ def test_models_export_what_is_ported():
     from repro_torch.models import sharding
 
     assert tmodels.sharding is sharding and "arena_specs" in sharding.__all__
+    # the model axis (slice G-2): the reference's four names and seq_constrain
+    from repro.models import sharding as jsharding
+
+    assert set(jsharding.__all__) | {"seq_constrain"} <= set(sharding.__all__)
+    assert all(callable(getattr(sharding, n)) for n in sharding.__all__)
+    assert {"apply_moe_ep", "apply_moe"} <= set(tlayers.__all__)
+    from repro_torch.launch import mesh as tmesh
+
+    assert "make_debug_mesh" in tmesh.__all__ and callable(tmesh.make_debug_mesh)
     assert tmodels.transformer is ttf and tmodels.layers is tlayers and tmodels.mlp is tmlp
     from repro_torch.models import kvcache
 
