@@ -247,7 +247,25 @@ nothing of the JAX package.  Phases, each printing its own lines:
              16 positions under a (2, 4) serving FSDP policy against the
              unsharded decode (bf16 bar 0.1), and qwen2-moe runs one 2 x 64
              prefill in f32 through the EP dispatch body over (1, 4), its
-             kept tokens against the dense MoE.  After the
+             kept tokens against the dense MoE.  Then the ``pod`` phase
+             (the pod tools, ``launch/dryrun.py`` and
+             ``launch/roofline.py``): ``dryrun_aggregation`` at N = 8 for
+             every arch on 16x16 but deepseek-v3-671b (refused before any
+             allocation: 94.4 GB of share and output row) and for
+             deepseek-v3-671b and qwen2-72b on 2x16x16, one chip's share
+             each through kernel 2 with its launches counted (the
+             2x16x16 deepseek share is ``(8, 1,310,596,480)``, 1.05e10
+             elements), then kernel 2 on the same seeded inputs against
+             ``fedavg_torch`` (f32 atol = rtol = 1e-5, in windows of 2^28
+             columns), two launches bit-identical, event-timed beside its
+             bound, the windowed plain version and ``torch.mv``; the
+             hierarchical aggregate of gemma3-4b's ``(2, P_pad)`` stack
+             over a (2, 16, 16) slot mesh of the card against the plain
+             weighted mean of its two rows; ``dryrun_one``'s host count
+             (on ``meta``) of qwen3-14b x train_4k, gemma3-4b x decode_32k
+             and deepseek-v3-671b x decode_32k; and ``step_costs`` of the
+             serve leg's own decode step, whose ``bound_s`` must not
+             exceed the step the serve leg measured.  After the
              arena leg, the ``naive`` line: the paper's baseline,
              ``core/naive.naive_aggregate`` (host float64, tensor by tensor,
              learner by learner) over the arena's 32 uploads, timed against
@@ -399,6 +417,20 @@ MODEL_AXIS_DECODES = (("gemma3-4b", (2, 4), {}, 40, 40), ("qwen3-14b", (1, 4), {
 FLASH_SLOTS, FLASH_MAX_LEN, FLASH_START, FLASH_STEPS = 8, 1056, 1040, 16
 FLASH_BAR = 0.1
 MODEL_AXIS_STEPS = 16
+# The pod phase: one chip's share of a pod's aggregate at N = 8 for every
+# arch on 16x16 (but deepseek-v3-671b, whose share and output row exceed the
+# card's memory and must be refused) and for these two on 2x16x16; the
+# hierarchical aggregate of POD_HIER_ARCH; dryrun_one's host count of three
+# full-config steps (deepseek-v3 at decode_32k: its prefill_32k count, 122k
+# aten ops, takes 14-30 s of host time, past the phase's budget).
+POD_LEARNERS = 8
+POD_REFUSED = "deepseek-v3-671b"
+POD_MULTI = ("deepseek-v3-671b", "qwen2-72b")
+POD_HIER_ARCH = "gemma3-4b"
+POD_DRYRUN = (("qwen3-14b", "train_4k"), ("gemma3-4b", "decode_32k"),
+              ("deepseek-v3-671b", "decode_32k"))
+POD_WINDOW = 2 ** 28  # columns a window of a plain check or plain timing
+POD_DEPTH = (5, 2)  # (samples, calls) of each pod timing
 TRIM_K = 8  # covers the 8 byzantine learners fault seed 7 makes of 32 (2 * 8 < 32)
 # The sharded arena's column slots (``FederationEnv(arena_shards=SLOTS)``): on
 # one card all of them share it, each shard its own allocation and launch.
@@ -863,9 +895,13 @@ def main() -> None:
         torch.cuda.empty_cache()
     print(json.dumps({"phase": "main", "eval_loss_by_round": eval_loss}), flush=True)
     families_line(dev)
-    for name, v in serve_leg(dev, counters, card).items():
+    serve_counts, serve_step_ms = serve_leg(dev, counters, card)
+    for name, v in serve_counts.items():
         launches[name] += v
     decode_families_line(dev, card)
+    pod_launches, pod_rows = pod_phase(kfed, dev, counters, card, serve_step_ms, errs)
+    launches["fedavg"] += pod_launches
+    timing["fedavg"]["pod_shapes"] = pod_rows
 
     if FAILURES:
         sys.exit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
@@ -3005,7 +3041,7 @@ def serve_leg(dev, counters: dict, card: str) -> dict:
     generated position on a wrapped ring).  Then, outside the counted
     window, kernels 3 and 4 on the pushed row (3.88e9 elements, past 2^31)
     against their plain versions (:func:`check_serving_row`).  Returns the
-    leg's launch counts."""
+    leg's launch counts and its decode step's milliseconds."""
     from repro_torch.configs import get_config
     from repro_torch.core import packing
     from repro_torch.kernels import quantize as kq
@@ -3071,7 +3107,7 @@ def serve_leg(dev, counters: dict, card: str) -> dict:
     row = packing.pack_numeric(params)
     del params
     check_serving_row(kq, row, card)
-    return counts
+    return counts, decode_s / SERVE_GEN * 1e3
 
 
 def _row_windows(n_padded: int) -> list[tuple[int, int]]:
@@ -3224,6 +3260,144 @@ def decode_families_line(dev, card: str) -> None:
     print(json.dumps({"phase": "main.decode_families", "families": out, "card": card}),
           flush=True)
 
+
+
+def _windows(width: int) -> list[tuple[int, int]]:
+    return [(a, min(a + POD_WINDOW, width)) for a in range(0, width, POD_WINDOW)]
+
+
+def pod_phase(kfed, dev, counters: dict, card: str, serve_step_ms: float,
+              errs: dict) -> tuple[int, list[dict]]:
+    """The pod tools (``launch/dryrun.py``, ``launch/roofline.py``) on the card.
+
+    (a) ``dryrun_aggregation`` at N = 8, with every launch count at 0 just
+    before each call and read just after: every arch on 16x16 but
+    deepseek-v3-671b, whose refusal (before any allocation) is asserted, then
+    deepseek-v3-671b and qwen2-72b on 2x16x16.  Each share goes through
+    ``weighted_average`` to kernel 2; outside the counted window the same
+    seeded inputs are drawn again and kernel 2 is held against
+    ``fedavg_torch`` at f32 atol = rtol = 1e-5 (in windows of 2^28 columns),
+    two launches compared bit for bit, and the kernel event-timed beside the
+    plain version (in the same windows), ``torch.mv`` given ŵ and its bound
+    (stack and weights read, the row written, over 3.35 TB/s).  (b) The
+    hierarchical aggregate of gemma3-4b's ``(2, P_pad)`` stack over a
+    ``(2, 16, 16)`` slot mesh of the card against the plain weighted mean of
+    its two rows.  (c) ``dryrun_one``'s host count of three full-config steps
+    (records printed).  (d) ``step_costs`` of the serve leg's own decode
+    step (gemma3-4b, batch 4, a bf16 cache of 1056 positions, on ``meta``):
+    its ``bound_s`` must not exceed the step the serve leg measured.
+    Returns kernel 2's launches in the counted windows and one row per share.
+    """
+    from repro_torch.configs import ARCHITECTURES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import HARDWARE
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import kvcache, transformer
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    props = torch.cuda.get_device_properties(0)
+    print(json.dumps({"phase": "pod", "hardware": HARDWARE, "total_memory": props.total_memory,
+                      "sm_count": props.multi_processor_count, "card": card,
+                      "allocated_gb_before": torch.cuda.memory_allocated() / 1e9}), flush=True)
+
+    # (a) one chip's share of the pod aggregate through kernel 2
+    before = torch.cuda.memory_allocated()
+    try:
+        dryrun.dryrun_aggregation(POD_REFUSED, POD_LEARNERS, False, device=dev)
+        _expect(False, f"pod: {POD_REFUSED} on 16x16 was not refused")
+    except ValueError as e:
+        _expect(torch.cuda.memory_allocated() == before,
+                f"pod: {POD_REFUSED} on 16x16 allocated before its refusal")
+        print(json.dumps({"phase": "pod", "refused": f"{POD_REFUSED} 16x16", "error": str(e)}),
+              flush=True)
+    combos = ([(a, False) for a in ARCHITECTURES if a != POD_REFUSED]
+              + [(a, True) for a in POD_MULTI])
+    launches, rows = 0, []
+    for seed, (arch, multi) in enumerate(combos):
+        for fn in counters.values():
+            fn.launches = 0
+        rec = dryrun.dryrun_aggregation(arch, POD_LEARNERS, multi, device=dev, seed=seed)
+        counts = {name: fn.launches for name, fn in counters.items()}
+        want = {**dict.fromkeys(counters, 0), "fedavg": 1 + dryrun.AGG_REPEATS}
+        _expect(counts == want, f"pod {arch} {rec['mesh']}: launches {counts}, want {want}")
+        launches += counts["fedavg"]
+        n, share = POD_LEARNERS, rec["share"]
+        stack, w = dryrun.aggregation_inputs(n, share, dev, seed)
+        kern = lambda: kfed.fedavg_cuda(stack, w)  # noqa: E731
+        got = kern()
+        err = 0.0
+        for a, b in _windows(share):
+            err = max(err, _close(got[a:b], kfed.fedavg_torch(stack[:, a:b], w), 1e-5,
+                                  what=f"pod {arch} {rec['mesh']} columns [{a}, {b})"))
+        _expect(_same_bits(got, kern()), f"pod {arch} {rec['mesh']}: two launches differ")
+        del got
+        errs["fedavg"] = max(errs["fedavg"], err)
+
+        def plain():
+            for a, b in _windows(share):
+                kfed.fedavg_torch(stack[:, a:b], w)
+
+        w_hat = kfed.normalize(w)
+        timed = _timed("fedavg", kern, plain, lambda: torch.mv(stack.T, w_hat),
+                       n * share * 4 + 4 * share + 4 * n, 2 * n * share, [n, share],
+                       samples=POD_DEPTH[0], inner=POD_DEPTH[1], plain_depth=POD_DEPTH)
+        row = {"arch": arch, "mesh": rec["mesh"], "shape": [n, share],
+               "elements": n * share, "bytes": n * share * 4 + 4 * share + 4 * n,
+               "launches": counts["fedavg"], "max_abs_err": err,
+               "dryrun_aggregate_ms": rec["aggregate_ms"], **timed}
+        rows.append(row)
+        print(json.dumps({"phase": "pod", "aggregate": row, "record": rec, "card": card}),
+              flush=True)
+        del stack, w, w_hat, kern, plain
+        torch.cuda.empty_cache()
+
+    # (b) the hierarchical aggregate, against the plain mean of its two rows
+    for fn in counters.values():
+        fn.launches = 0
+    rec, out = dryrun._aggregate(POD_HIER_ARCH, 2, True, True, dev, 0)
+    counts = {name: fn.launches for name, fn in counters.items()}
+    _expect(not any(counts.values()), f"pod hierarchical: launches {counts}")
+    stack, w = dryrun.aggregation_inputs(2, rec["P_pad"], dev, 0)
+    err = 0.0
+    for a, b in _windows(rec["P_pad"]):
+        want = (stack[0, a:b] * w[0] + stack[1, a:b] * w[1]) / w.sum()
+        err = max(err, _close(out[a:b], want, 1e-5, what=f"pod hierarchical [{a}, {b})"))
+    print(json.dumps({"phase": "pod", "hierarchical": rec, "max_abs_err": err, "card": card}),
+          flush=True)
+    del out, stack, w
+    torch.cuda.empty_cache()
+
+    # (c) dryrun_one at full config: host counts on meta
+    for arch, shape in POD_DRYRUN:
+        rec = dryrun.dryrun_one(arch, shape)
+        _expect(rec["status"] == "ok", f"pod dryrun_one {arch} {shape}: {rec}")
+        print(json.dumps({"phase": "pod", "dryrun_one": rec}), flush=True)
+
+    # (d) the serve leg's decode step, counted, against its measured time
+    cfg = get_config(SERVE_ARCH)
+    costs = rl.step_costs(
+        make_serve_step(cfg), transformer.abstract_params(cfg),
+        kvcache.abstract_cache(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN),
+        torch.empty((SERVE_BATCH, 1), dtype=torch.int64, device="meta"),
+        torch.empty((), dtype=torch.int64, device="meta"))
+    terms = rl.roofline_terms(costs.flops, costs.bytes_accessed, 0.0)
+    _expect(terms["bound_s"] * 1e3 <= serve_step_ms,
+            f"pod: the serve step's counted bound {terms['bound_s'] * 1e3} ms exceeds its "
+            f"measured {serve_step_ms} ms")
+    print(json.dumps({"phase": "pod", "serve_step": {
+        "arch": cfg.name, "batch": SERVE_BATCH, "cache": SERVE_PROMPT + SERVE_GEN,
+        "flops": costs.flops, "bytes_accessed": costs.bytes_accessed,
+        "argument_bytes": costs.argument_bytes, "peak_bytes": costs.peak_bytes,
+        "ops": costs.ops, **terms, "bound_ms": terms["bound_s"] * 1e3,
+        "measured_step_ms": serve_step_ms,
+        "bound_over_measured": terms["bound_s"] * 1e3 / serve_step_ms}, "card": card}),
+        flush=True)
+    print(json.dumps({"phase": "pod", "fedavg_launches": launches,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return launches, rows
 
 
 @contextlib.contextmanager

@@ -1,9 +1,8 @@
-"""The controller's mesh: a grid of slots, each naming the device it lives on.
+"""Meshes of slots, each naming the device it lives on, and the card's constants.
 
-The port of ``repro/launch/mesh.py``'s controller mesh and debug mesh (its
-``make_production_mesh`` and TPU ``HARDWARE`` constants are the pod tools,
-not ported).  The
-reference lays its sharded arena out over a ``jax.sharding.Mesh`` of the
+The port of ``repro/launch/mesh.py``: the controller mesh, the debug mesh,
+the production meshes and the ``HARDWARE`` constants the roofline reads
+(``launch/roofline.py``), here the H100 SXM's.  The reference lays its sharded arena out over a ``jax.sharding.Mesh`` of the
 controller's local devices; the port's :class:`SlotMesh` is the same grid,
 with a ``torch.device`` in each cell.  A *slot* is one cell: it holds one
 shard of whatever is laid out over the mesh, and slots may share a device.
@@ -25,7 +24,19 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["SlotMesh", "make_debug_mesh", "make_controller_mesh"]
+__all__ = ["make_production_mesh", "make_debug_mesh", "make_controller_mesh", "HARDWARE",
+           "SlotMesh"]
+
+# NVIDIA H100 SXM5 80 GB (700 W board power) data-sheet constants, under the
+# reference's keys so that ``roofline_terms(hw=)`` reads either dict.
+HARDWARE = {
+    "peak_flops_bf16": 989.4e12,  # dense bf16 tensor-core FLOP/s, per card
+    "hbm_bandwidth": 3.35e12,  # HBM3, B/s, per card
+    # The reference's key for its ICI link: here one NVLink 4 link, 25 GB/s
+    # each direction (18 links a card).
+    "ici_link_bandwidth": 25e9,
+    "hbm_bytes": 80 * 10**9,  # per card
+}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -124,6 +135,23 @@ def make_controller_mesh(n_shards: int | None = None,
     for s in range(n):
         grid[s] = visible[s % len(visible)]
     return SlotMesh(grid, ("data",))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device | None = None) -> SlotMesh:
+    """The reference's production mesh as slots: ``(16, 16)`` with axes
+    ``("data", "model")``, or ``(2, 16, 16)`` with ``("pod", "data",
+    "model")`` when ``multi_pod``; every slot on ``device`` (resolved as
+    every entry point resolves it).  It allocates nothing: its shape drives
+    ``launch/specs.py``'s arithmetic and ``launch/dryrun.py``'s share of a
+    pod's aggregate on one card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dev = resolve_device(device)
+    grid = np.empty(shape, dtype=object)
+    for idx in np.ndindex(shape):
+        grid[idx] = dev
+    return SlotMesh(grid, axes)
 
 
 def make_debug_mesh(data: int = 1, model: int = 1,

@@ -81,8 +81,12 @@ def _dense_init(generator: torch.Generator, shape: tuple[int, ...], param_dtype,
 
     Drawn on the generator's device.  The same distribution as the
     reference's, not the same numbers (a torch generator is not threefry):
-    tests carry the reference's weights across instead.
+    tests carry the reference's weights across instead.  With no generator,
+    an uninitialized tensor on the default device, nothing drawn
+    (``transformer.abstract_params`` builds its ``meta`` tree this way).
     """
+    if generator is None:
+        return torch.empty(shape, dtype=param_dtype)
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     u = torch.rand(shape, generator=generator, device=generator.device)

@@ -38,8 +38,9 @@ functions, the one place each is stood in for:
 * ``pmean`` — :func:`pmean`: :func:`psum` over the count;
 * ``all_gather`` over the data axes (tokens, FSDP weights) —
   :func:`all_gather`: concatenation in slot order.  Weights and caches are
-  not placed per slot (the reference's ``launch/specs.py`` is not ported),
-  so a gathered weight is the whole tensor and a slot reads its block of it.
+  not placed per slot (``launch/specs.py`` computes their specs, as the
+  reference's does, and places nothing), so a gathered weight is the whole
+  tensor and a slot reads its block of it.
 
 A slot's inputs reach its device with ``.to(dev)``, which returns the very
 tensor when the slot shares that device: one card runs the multi-slot path

@@ -33,7 +33,7 @@ and writes into it in place: each layer gets its stacked leaf's view
 
 Public entry points:
 
-* ``init_params(generator, cfg, device)``
+* ``init_params(generator, cfg, device)`` / ``abstract_params(cfg)``
 * ``encode(params, frames, cfg, policy=None)`` — the audio encoder over
   frame embeddings
 * ``forward(params, tokens, cfg, ...)`` — train/prefill logits, or a decode
@@ -58,7 +58,7 @@ from repro_torch.models.config import (
 from repro_torch.models.sharding import ShardingPolicy
 from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "encode", "forward", "decode_step", "lm_loss"]
+__all__ = ["init_params", "abstract_params", "encode", "forward", "decode_step", "lm_loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +116,20 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device: torch.devi
     scales and adapters 1, biases 0; Mamba2's ``A_log``, ``D_skip`` and
     ``dt_bias`` as the reference sets them.
     """
+    return tree_map(lambda t: t.to(device), _init_tree(generator, cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The tree :func:`init_params` returns, as ``meta`` tensors of the same
+    names, shapes and dtypes: nothing is drawn or allocated (the reference's
+    ``jax.eval_shape`` of its init; the dry-run's input)."""
+    with torch.device("meta"):
+        return _init_tree(None, cfg)
+
+
+def _init_tree(generator: torch.Generator | None, cfg: ModelConfig) -> dict:
+    """The params tree on the generator's device; with no generator, on the
+    default device and undrawn (``layers._dense_init``)."""
     Vp, D = cfg.padded_vocab_size, cfg.d_model
     params: dict[str, Any] = {
         "embed": layers._dense_init(generator, (Vp, D), cfg.param_dtype, scale=0.02),
@@ -143,7 +157,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device: torch.devi
                               _init_layer(generator, cfg, LayerSpec(kind=ATTN))),
             "final_norm": layers.init_norm(cfg),
         }
-    return tree_map(lambda t: t.to(device), params)
+    return params
 
 
 def _encoder_segment(cfg: ModelConfig) -> Segment:
