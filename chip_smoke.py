@@ -130,7 +130,7 @@ nothing of the JAX package.  Phases, each printing its own lines:
              MLA's sharded decode and the 2-D EP decode ((2, 2), serving
              FSDP; deepseek-v3, qwen2-moe), each decode also against the
              card's unsharded one at the reference test's 2e-3;
-5. main    — housing-mlp-10m, 32 learners, 4 local steps of batch 100,
+5. main    — housing-mlp-10m, 32 learners, 2 local steps of batch 100,
              fourteen legs and a diagnostic, then two fedlm-100m legs, each
              reached as users reach it, with
              its launch counts zeroed just before it and read just after:
@@ -343,7 +343,12 @@ FEDBUFF_K, FEDBUFF_UPDATES = 8, 4  # the buffered_async_int8 leg
 # that setting for one round and prints what it did.  Eight run the round
 # in four waves, so half of it lands between the second and the third.
 DEADLINE_WORKERS = 8
-LOCAL_STEPS = 4
+# Local SGD steps a round: 2 on the housing legs (their depth, cut from 4:
+# training is over 90% of a round, and host-bound legs ran 31% slower on one
+# H100 machine than on another, past the 1200 s limit at 4); the LM legs
+# keep 4, so their eval loss falls after one round trained from the aggregate.
+LOCAL_STEPS = 2
+LM_LOCAL_STEPS = 4
 BATCH = 100
 LR = 0.05
 INT8_ROW_BYTES = 10_333_440  # wire_layout(P_MAIN): 10,174,464 int8 + 39,744 f32 scales
@@ -711,7 +716,7 @@ def main() -> None:
             sparse_mode="densify", arena_dtype="int8", **fed("topk_densify_int8"))),
         "lm_arena": lambda: _controller(train.main([
             "--arch", "fedlm-100m", "--learners", str(N_MAIN),
-            "--rounds", str(LEG_ROUNDS["lm_arena"]), "--local-steps", str(LOCAL_STEPS),
+            "--rounds", str(LEG_ROUNDS["lm_arena"]), "--local-steps", str(LM_LOCAL_STEPS),
             "--batch-size", str(LM_BATCH), "--dispatch-workers", str(LM_WORKERS)])),
         "lm_int8_arena": lambda: _controller(run_lm_federation(
             train, dev, LEG_ROUNDS["lm_int8_arena"], upload_codec="int8", arena_dtype="int8")),
@@ -1695,6 +1700,25 @@ def check_quantize(kq, dev) -> dict:
         print(json.dumps({"phase": "kernels", "int8_encode": size, "wire_bytes": int(got.shape[0]),
                           "bit_identical": same}), flush=True)
         _expect(same, f"Int8UploadCodec.encode {size}: the wire differs from the plain bytes")
+    # Kernel 4's persistent grid at its edges: odd group counts of group 8
+    # (a row ending on half a 16-value unit), groups 24 and 4096 on rows of
+    # one round and of two, a row of exactly one grid stride of whole chunks
+    # and that stride -+ 16 values.
+    gen = torch.Generator(device=dev).manual_seed(26)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stride = kq.dequant_plan(P_MAIN, sms) * kq.DQ_WARPS * kq.DQ_CHUNK
+    for n, group in ((8, 8), (24, 8), (8 * 1_700_001, 8), (24 * 560_001, 24), (4096 * 3_301, 4096),
+                     (stride, 256), (stride - 16, 8), (stride + 16, 8)):
+        q = torch.randint(-127, 128, (n,), generator=gen, device=dev, dtype=torch.int8)
+        s = torch.rand((n // group,), generator=gen, device=dev) * 5 + 1e-3
+        launches = kq.dequantize_cuda.launches
+        same = _same_bits(kq.dequantize_cuda(q, s, group), kq.dequantize_torch(q, s, group))
+        one_launch = kq.dequantize_cuda.launches == launches + 1
+        print(json.dumps({"phase": "kernels", "dequantize": n, "group": group,
+                          "grid": kq.dequant_plan(n, sms), "bit_identical": same,
+                          "one_launch": one_launch}), flush=True)
+        _expect(same and one_launch, f"dequantize {n} group {group}: bit-identical {same}, "
+                                     f"one launch {one_launch}")
     return {"quantize": 0.0, "dequantize": 0.0}
 
 
@@ -1968,6 +1992,11 @@ def time_int8_kernels(kq, kfed, kfu, dev, errs: dict) -> dict:
                                p + 4 * groups + 4 * p, p, [p])
     print(json.dumps({"phase": "kernels", "diagnostic": "dequantize_cuda host us per call",
                       "shape": [p], "host_us": _host_us(kern)}), flush=True)
+    body = _device_body_ms("dequantize at the 10m row", kq.dequantize_cuda, kern, calls=5)
+    print(json.dumps({"phase": "kernels", "diagnostic": "dequantize device body (CUDA events)",
+                      "shape": [p], "device_ms": body, "bound_ms": out["dequantize"]["bound_ms"],
+                      "bound_over_body": out["dequantize"]["bound_ms"] / statistics.median(body)}),
+          flush=True)
     _one_kernel_a_call("dequantize_cuda", _count_device_kernels("dequantize", kern, [p], calls=20),
                        "dequantize_kernel", 20)
     del qs, qg, turn, kern
@@ -2460,8 +2489,9 @@ def check_sharded_kernels(kfed, kfu, krob, dev, card: str) -> None:
     a NaN dead scale row), and show the profiler ``SLOTS`` device kernels a
     call, all of them the kernel, with no copy among them.  Each slot's launch
     alone (writing its window of the output) is event-timed; their sum stands
-    beside the sharded call, the whole launch and the bound.  Then the
-    sharded scatter at ``(32, K_MAIN)`` against the unsharded one, bit for bit."""
+    beside the sharded call, the whole launch and the bound, and for kernel 1
+    ``torch.mv`` given ŵ on each slot's shard.  Then the sharded scatter at
+    ``(32, K_MAIN)`` against the unsharded one, bit for bit."""
     from repro_torch.kernels import ops, sparse_agg
     from repro_torch.launch.mesh import make_controller_mesh
     from repro_torch.models.sharding import arena_specs
@@ -2524,6 +2554,10 @@ def check_sharded_kernels(kfed, kfu, krob, dev, card: str) -> None:
         _expect(_same_bits(out, got), f"sharded {name}: the slots' own launches differ")
         sharded_ms, whole_ms = _time_ms(lambda: sharded(*args)), _time_ms(whole)
         bound_ms, bound_by = _bound(nbytes, flops)
+        library = None
+        if name == "masked_fedavg":  # timed only: the NaN dead row makes its sums NaN
+            w_hat = kfed.masked_normalize(w, m)
+            library = [_time_ms(lambda s=s: torch.mv(shards[s].T, w_hat)) for s in range(SLOTS)]
         print(json.dumps({"phase": "kernels", "sharded": name, "card": card, "slots": SLOTS,
                           "devices": [str(d) for d in layout.devices],
                           "shard": [N_MAIN, width], "launches_per_call": launches,
@@ -2532,7 +2566,8 @@ def check_sharded_kernels(kfed, kfu, krob, dev, card: str) -> None:
                           "slot_ms": slot_ms, "slot_ms_sum": sum(slot_ms),
                           "sharded_call_ms": sharded_ms, "whole_launch_ms": whole_ms,
                           "slot_bound_ms": bound_ms, "bound_ms": SLOTS * bound_ms,
-                          "bound_by": bound_by}), flush=True)
+                          "bound_by": bound_by, "slot_library_ms": library,
+                          "library": "torch.mv" if library else None}), flush=True)
     del rows, q, scales, shards, q_sh, s_sh, out
     torch.cuda.empty_cache()
     idx = torch.stack([torch.randperm(P_MAIN, generator=gen, device=dev)[:K_MAIN]
@@ -2728,7 +2763,7 @@ def run_lm_federation(train, dev, rounds: int, **env):
     cfg = fedlm_100m.config()
     fleet = train.build_lm_learners(cfg, N_MAIN, 0, optimizer=optim.sgd(LR), device=dev)
     initial = transformer.init_params(torch.Generator().manual_seed(0), cfg, dev)
-    driver = Driver(FederationEnv(local_steps=LOCAL_STEPS, batch_size=LM_BATCH,
+    driver = Driver(FederationEnv(local_steps=LM_LOCAL_STEPS, batch_size=LM_BATCH,
                                   learning_rate=LR,
                                   termination=TerminationCriteria(max_rounds=rounds),
                                   max_dispatch_workers=LM_WORKERS, device=dev, **env))
@@ -2906,7 +2941,7 @@ def run_moe_federation(train, dev, rounds: int):
                       "ln_vocab": math.log(cfg.vocab_size), "learners": N_MOE,
                       "dispatch_workers": MOE_WORKERS, "depth": "1 of 24 layers"}), flush=True)
     assert math.isfinite(init_loss) and abs(init_loss - math.log(cfg.vocab_size)) < 2.0, init_loss
-    ctrl = Controller(protocol=SyncProtocol(LOCAL_STEPS, LM_BATCH, LR), arena_n_max=N_MOE,
+    ctrl = Controller(protocol=SyncProtocol(LM_LOCAL_STEPS, LM_BATCH, LR), arena_n_max=N_MOE,
                       max_dispatch_workers=MOE_WORKERS, device=dev)
     ctrl.set_initial_model(initial)
     del initial

@@ -17,6 +17,7 @@ runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -26,7 +27,7 @@ import tempfile
 import threading
 import time
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "load_library", "count_launch"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "load_library", "count_launch", "sm_count"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "fedavg.cu", _CSRC / "quantize.cu", _CSRC / "robust.cu")
@@ -47,8 +48,8 @@ _SIGNATURES = {
     "repro_fedavg": [_P, _I, _L, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
     # x, n, q, scales, n_groups, group, stream
     "repro_quantize": [_P, _L, _P, _P, _L, _I, _P],
-    # q, scales, out, n, group, stream
-    "repro_dequantize": [_P, _P, _P, _L, _I, _P],
+    # q, scales, out, n, group, the persistent grid, stream
+    "repro_dequantize": [_P, _P, _P, _L, _I, _I, _P],
     # q, q row stride, scales, scales row stride, raw weights, mask, out, N, P,
     # group, then the launch plan (grid, tile bytes, stages, dynamic shared
     # memory bytes), stream
@@ -164,3 +165,12 @@ def count_launch(wrapper) -> None:
     """
     with _count_lock:
         wrapper.launches += 1
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once per process (a
+    wrapper sizing a persistent grid must not query the device on every call)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -30,13 +30,12 @@ where the kernel is launched, so a run can show it went through the kernel.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import count_launch, load_library
+from repro_torch.kernels._build import count_launch, load_library, sm_count
 
 __all__ = [
     "normalize",
@@ -197,14 +196,8 @@ class LaunchPlan(NamedTuple):
     n_tiles: int
 
 
-@functools.cache
-def _sm_count_of(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _sm_count(device: torch.device) -> int:
-    return _sm_count_of(device.index if device.index is not None
-                        else torch.cuda.current_device())
+    return sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def launch_plan(rows: torch.Tensor, *, sm_count: int | None = None,

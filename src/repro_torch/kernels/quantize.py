@@ -38,11 +38,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import count_launch, load_library
+from repro_torch.kernels._build import count_launch, load_library, sm_count
 __all__ = [
     "DEFAULT_GROUP", "DEFAULT_BLOCK_ROWS", "effective_block_rows", "wire_layout",
     "scales_padding", "wire_prefix", "quantize_torch", "dequantize_torch", "quantize_cuda",
-    "dequantize_cuda",
+    "dequantize_cuda", "dequant_plan",
 ]
 
 DEFAULT_GROUP = 256
@@ -182,6 +182,33 @@ def dequantize_torch(
 # ---------------------------------------------------------------------------
 
 
+#: The dequantize kernel's warps a block (``csrc/quantize.cu``'s ``kThreads`` / 32)
+#: and the values a warp takes at once (``4 * kDqChunkQuads``).
+DQ_WARPS = 8
+DQ_CHUNK = 2048
+#: Blocks of the persistent grid an SM holds (``kDqBlocksPerSm``, the
+#: kernel's launch bound): 48 warps, each with 64 bytes a lane in flight.
+#: ``tests/test_torch_dequant_plan.py`` holds these three to the kernel's.
+DQ_BLOCKS_PER_SM = 6
+
+
+def dequant_plan(n: int, sm_count: int) -> int:
+    """The persistent grid of ``repro_dequantize`` for an ``(n,)`` row: the
+    fewest blocks whose warps take as many rounds over the row's
+    ``n // DQ_CHUNK`` whole chunks as ``DQ_BLOCKS_PER_SM`` blocks on each of
+    ``sm_count`` SMs would, so the last round is as full as the first (1 for
+    a row under one chunk, whose values the tail warp takes)."""
+    chunks = n // DQ_CHUNK
+    rounds = -(-chunks // (sm_count * DQ_BLOCKS_PER_SM * DQ_WARPS))
+    warps = -(-chunks // rounds) if rounds else 1
+    return -(-warps // DQ_WARPS)
+
+
+#: ``dequant_plan``'s grid by (device, n): read once a row size, so a call
+#: neither queries the card nor replans.
+_DQ_GRIDS: dict[tuple[int, int], int] = {}
+
+
 def _aligned(t: torch.Tensor, what: str, dtype: torch.dtype) -> torch.Tensor:
     """A contiguous 1-D CUDA tensor of ``dtype`` on a 16-byte boundary."""
     if not t.is_cuda:
@@ -200,10 +227,11 @@ def _launch(entry, t: torch.Tensor, *args) -> int:
 
     A 10 MB row's kernel takes about 20 us on the card, so the host's share
     of each call counts: the device's context is entered only when it is not
-    the current device, and the stream is read as its raw handle, not as a
-    ``Stream`` object."""
+    the current device (read without ``torch.cuda``'s lazy-init check: a
+    CUDA tensor exists, so CUDA is up), and the stream is read as its raw
+    handle, not as a ``Stream`` object."""
     index = t.get_device()
-    if index == torch.cuda.current_device():
+    if index == torch._C._cuda_getDevice():
         return entry(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return entry(*args, torch._C._cuda_getCurrentRawStream(index))
@@ -235,19 +263,24 @@ def quantize_cuda(
 def dequantize_cuda(
     q: torch.Tensor, scales: torch.Tensor, group: int = DEFAULT_GROUP
 ) -> torch.Tensor:
-    """``q * scale[group]`` on the card through the hand-written kernel."""
+    """``q * scale[group]`` on the card through the hand-written kernel, one
+    launch on the persistent grid of :func:`dequant_plan`."""
     q = _aligned(q, "q", torch.int8)
     scales = _aligned(scales, "scales", torch.float32)
     n = q.shape[0]
     rows = _check_groups(n, group, "q")
-    if scales.shape[0] != rows or scales.get_device() != q.get_device():
+    index = q.get_device()
+    if scales.shape[0] != rows or scales.get_device() != index:
         raise ValueError(
             f"got {scales.shape[0]} scales on {scales.device} for {rows} groups of "
             f"{group} on {q.device}"
         )
+    grid = _DQ_GRIDS.get((index, n))
+    if grid is None:
+        grid = _DQ_GRIDS[index, n] = dequant_plan(n, sm_count(index))
     out = q.new_empty((n,), dtype=torch.float32)
     rc = _launch(load_library().lib.repro_dequantize, q, q.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(), n, group)
+                 out.data_ptr(), n, group, grid)
     if rc != 0:
         raise RuntimeError(f"repro_dequantize launch failed with cudaError {rc}")
     count_launch(dequantize_cuda)

@@ -14,7 +14,9 @@ view, at P of 1, 3 and 5, with one live row among NaN ones, zero weights and
 the empty mask, two launches bit-identical, one device kernel per wrapper
 call); quantize
 and dequantize bit-identical to their plain versions (``ops.quantize`` on
-unpadded rows with ragged tails, one launch that writes the wire's layout);
+unpadded rows with ragged tails, one launch that writes the wire's layout;
+dequantize on its persistent grid's edges: odd group counts of group 8,
+groups 24 and 4096 over one round and two, one grid stride -+ 16 values);
 the fused dequant-into-aggregate at atol = rtol = 2e-5 (at full width all
 live and 8 of 32 live under staleness weights, group 512, N = 2,049,
 unaligned views, a view past 2^31 bytes; bit-identical to the f32 FedAvg
@@ -271,6 +273,38 @@ def test_quantize_kernels_match_plain(cuda_device, size, group):
     assert torch.equal(back.view(torch.int32), want.view(torch.int32))
     assert (tquant.quantize_cuda.launches, tquant.dequantize_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+def _dequantize_agrees(n, group, seed, device):
+    """``dequantize_cuda`` bit-identical to ``dequantize_torch``, one launch."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-127, 128, size=n, dtype=np.int8)).to(device)
+    s = torch.from_numpy((rng.random(n // group) * 5 + 1e-3).astype(np.float32)).to(device)
+    before = tquant.dequantize_cuda.launches
+    got = tquant.dequantize_cuda(q, s, group)
+    assert tquant.dequantize_cuda.launches == before + 1
+    want = tquant.dequantize_torch(q, s, group)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,group", [(8, 8), (24, 8), (8 * 4_097, 8), (8 * 1_700_001, 8),
+                                     (24, 24), (24 * 560_001, 24), (4096, 4096),
+                                     (4096 * 3_301, 4096)])
+def test_dequantize_kernel_groups(cuda_device, n, group):
+    """The persistent grid with odd group counts of group 8 (a row ending
+    on half a 16-value unit), group 24 (not a power of two) and 4096, on
+    rows of one round and of two (the group carried across the stride)."""
+    _dequantize_agrees(n, group, seed=n + group, device=cuda_device)
+
+
+@pytest.mark.parametrize("delta,group", [(0, 256), (-16, 8), (16, 8)])
+def test_dequantize_kernel_at_one_grid_stride(cuda_device, delta, group):
+    """A row of exactly one stride of the plan's grid at the 10m row (every
+    warp one chunk), and that stride -+ one 16-value unit (the last chunk
+    short, left to the tail warp; one unit past the stride)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    stride = tquant.dequant_plan(P_MAIN, sms) * tquant.DQ_WARPS * tquant.DQ_CHUNK
+    _dequantize_agrees(stride + delta, group, seed=stride + delta, device=cuda_device)
 
 
 @pytest.mark.parametrize("n,p,group", [(7, 4096, 256), (33, 2304, 256), (4, 4096, 512)])
