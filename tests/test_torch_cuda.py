@@ -556,8 +556,9 @@ def test_quantize_and_trimmed_mean_launch_one_device_kernel(cuda_device):
     device kernel a call (no pad, no copy, no torch op).  The profiler must
     have recorded them, so the test cannot pass on an empty trace.  It has
     been seen to miss a record now and then, and a whole window once, never
-    to add one; so a window is traced up to three times, and one missed
-    record of ten is accepted."""
+    to add one; so a window is traced up to three times, the fullest is kept
+    (as ``chip_smoke._count_device_kernels`` keeps it), and one missed record
+    of ten is accepted."""
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.randn((P_STACK,), device=cuda_device)
@@ -567,13 +568,16 @@ def test_quantize_and_trimmed_mean_launch_one_device_kernel(cuda_device):
                          (lambda: trobust.masked_trimmed_mean_cuda(rows, m, 8), "network_kernel")):
         call()
         torch.cuda.synchronize()
+        names: list[str] = []
         for _ in range(3):  # a window that missed a record is traced again
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(10):
                     call()
                 torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            seen = [e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            if len(seen) > len(names):
+                names = seen
             if len(names) >= 10:
                 break
         assert 9 <= len(names) <= 10 and all(kernel in k for k in names), names

@@ -2,10 +2,12 @@
 
 A fresh interpreter imports every module of ``repro_torch`` and must end
 with neither ``jax`` nor ``repro`` loaded; a source scan pins the same rule
-for every file of the port and for ``chip_smoke.py``; and the default device
-is the card, never a silent fallback to the host.
+for every file of the port, its example scripts (``examples/torch_*.py``)
+and ``chip_smoke.py``; and the default device is the card, never a silent
+fallback to the host, for the entry points and the example scripts alike.
 """
 
+import importlib.util
 import pathlib
 import re
 import subprocess
@@ -57,8 +59,14 @@ _FORBIDDEN = re.compile(
 )
 
 
+EXAMPLES = ("torch_quickstart", "torch_fed_lm_e2e", "torch_secure_async_fl",
+            "torch_serve_multiarch")
+
+
 def test_source_scan_has_no_forbidden_imports():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scripts = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.stem for p in scripts] == sorted(EXAMPLES)
+    files = sorted(PORT.rglob("*.py")) + scripts + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
@@ -90,3 +98,20 @@ def test_default_device_is_the_card(monkeypatch):
     down = Channel(quantize_codec=QuantCodec(), device="cpu")
     got = down.recv(down.broadcast({"w": torch.ones(300)}).to())
     assert got["w"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_scripts_default_to_the_card(monkeypatch, name):
+    """Without CUDA a port script raises unless given ``--device cpu``; it
+    never carries on with the host."""
+    spec = importlib.util.spec_from_file_location(f"_isolation_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            script.main(argv)
+    if name == "torch_serve_multiarch":
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            script.serve("gemma3-4b")
