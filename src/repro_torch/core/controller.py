@@ -50,13 +50,12 @@ from __future__ import annotations
 
 import math
 import threading
-import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, packing
+from repro_torch.core import aggregation, packing, tracing
 from repro_torch.core import secure as secure_mod
 from repro_torch.core.engine import RoundEngine, RoundTimings, UploadRejectedError
 from repro_torch.core.journal import EventJournal, jsonable
@@ -564,7 +563,8 @@ class Controller:
         with self._wire_lock:
             if self._wire_cache is None or self._wire_cache[0] != key:
                 bc = self.channel.broadcast(params=self.global_params,
-                                            buffer=self.global_buffer, manifest=self.manifest)
+                                            buffer=self.global_buffer, manifest=self.manifest,
+                                            version=self._model_version)
                 self._c_dispatch_ser.add(1)
                 self._wire_cache = (key, bc)
             return self._wire_cache[1]
@@ -658,8 +658,15 @@ class Controller:
         stream (:meth:`_sparse_direct_ok`; the norm is the values' and
         clipping rescales them), counted in ``engine.uploads.sparse_direct``;
         anything else is refused there.  Returns the screen's clip info
-        (``None`` when stored untouched).
+        (``None`` when stored untouched).  Timed by the span
+        ``controller.ingest``.
         """
+        up = update.upload
+        with tracing.Span("controller.ingest",
+                          bytes=None if up is None else int(up.payload.nbytes)):
+            return self._ingest(update)
+
+    def _ingest(self, update: LocalUpdate) -> dict | None:
         version = self._learner_versions.get(update.learner_id, 0)
         if self._sparse_direct_ok(update):
             return self._ingest_sparse(update, version)
@@ -829,7 +836,8 @@ class Controller:
         # The card returns before it finishes: wait for the reduction and the
         # server step, so aggregation_s bounds them, not their launch (and not
         # the learner work other threads queue after them).
-        wait_queued(self.device)
+        with tracing.Span("controller.commit_wait"):
+            wait_queued(self.device)
         self.global_buffer = new_buffer
         self.global_params = packing.unpack_numeric(new_buffer, self.manifest)
         self._model_version += 1
@@ -847,28 +855,28 @@ class Controller:
         first.  Secure mode sums mask-encoded fixed-point rows in a per-round
         mask session.  Commits the result; returns the aggregation seconds.
         """
-        t0 = time.perf_counter()
-        if self.store_mode == "arena":
-            new_buffer = self._aggregate_arena(selected)
-        else:
-            with self._store_lock:
-                records = self.store.select_latest(list(selected))
-            if not records:
-                raise RuntimeError("no local models available to aggregate")
-            if self.secure:
-                new_buffer = secure_mod.secure_fedavg(
-                    [r.buffer for r in records], [float(r.num_examples) for r in records],
-                    base_seed=self._mask_session_seed(self.round_id),
-                )
+        with tracing.Span("controller.aggregate", version=self._model_version + 1) as span:
+            if self.store_mode == "arena":
+                new_buffer = self._aggregate_arena(selected)
             else:
-                stack = torch.stack([r.buffer for r in records], dim=0)
-                weights = torch.tensor(
-                    [float(r.num_examples) for r in records], dtype=torch.float32,
-                    device=self.device,
-                )
-                new_buffer = self.aggregate_fn(stack, weights)
-        self._commit(new_buffer)
-        return time.perf_counter() - t0
+                with self._store_lock:
+                    records = self.store.select_latest(list(selected))
+                if not records:
+                    raise RuntimeError("no local models available to aggregate")
+                if self.secure:
+                    new_buffer = secure_mod.secure_fedavg(
+                        [r.buffer for r in records], [float(r.num_examples) for r in records],
+                        base_seed=self._mask_session_seed(self.round_id),
+                    )
+                else:
+                    stack = torch.stack([r.buffer for r in records], dim=0)
+                    weights = torch.tensor(
+                        [float(r.num_examples) for r in records], dtype=torch.float32,
+                        device=self.device,
+                    )
+                    new_buffer = self.aggregate_fn(stack, weights)
+            self._commit(new_buffer)
+        return span.seconds
 
     def _aggregate_arena(self, selected: list[str]) -> torch.Tensor:
         """Masked reduction over the arena restricted to the round's cohort."""
@@ -1004,21 +1012,21 @@ class Controller:
         aggregation seconds.
         """
         alpha = getattr(self.protocol, "staleness_alpha", 0.5)
-        t0 = time.perf_counter()
-        if self.store_mode == "arena":
-            with self.arena.lock:
-                if self.secure:
-                    new_buffer = self._secure_community_arena(alpha)
-                else:
-                    new_buffer = self._staleness_reduce(self.arena.mask, alpha)
-        else:
-            with self._store_lock:
-                records = self.store.select_latest(None)  # all known models
-            if not records:
-                raise RuntimeError("no local models available to aggregate")
-            new_buffer = self._staleness_stack(records, alpha)
-        self._commit(new_buffer)
-        return time.perf_counter() - t0
+        with tracing.Span("controller.aggregate", version=self._model_version + 1) as span:
+            if self.store_mode == "arena":
+                with self.arena.lock:
+                    if self.secure:
+                        new_buffer = self._secure_community_arena(alpha)
+                    else:
+                        new_buffer = self._staleness_reduce(self.arena.mask, alpha)
+            else:
+                with self._store_lock:
+                    records = self.store.select_latest(None)  # all known models
+                if not records:
+                    raise RuntimeError("no local models available to aggregate")
+                new_buffer = self._staleness_stack(records, alpha)
+            self._commit(new_buffer)
+        return span.seconds
 
     def aggregate_buffer(self, members: list[str]) -> float:
         """One FedBuff community update over exactly the buffered members.
@@ -1031,26 +1039,26 @@ class Controller:
         alpha = getattr(self.protocol, "staleness_alpha", 0.5)
         wanted = set(members)
         ordered = [lid for lid in self._learners if lid in wanted]
-        t0 = time.perf_counter()
-        if not ordered:
-            raise RuntimeError("no local models available to aggregate")
-        if self.store_mode == "arena":
-            arena = self.arena
-            with arena.lock:
-                if self.secure:
-                    new_buffer = self._secure_community_arena(alpha, members=ordered)
-                else:
-                    if arena.num_valid(ordered) == 0:
-                        raise RuntimeError("no local models available to aggregate")
-                    new_buffer = self._staleness_reduce(arena.round_mask(ordered), alpha)
-        else:
-            with self._store_lock:
-                records = self.store.select_latest(ordered)
-            if not records:
+        with tracing.Span("controller.aggregate", version=self._model_version + 1) as span:
+            if not ordered:
                 raise RuntimeError("no local models available to aggregate")
-            new_buffer = self._staleness_stack(records, alpha)
-        self._commit(new_buffer)
-        return time.perf_counter() - t0
+            if self.store_mode == "arena":
+                arena = self.arena
+                with arena.lock:
+                    if self.secure:
+                        new_buffer = self._secure_community_arena(alpha, members=ordered)
+                    else:
+                        if arena.num_valid(ordered) == 0:
+                            raise RuntimeError("no local models available to aggregate")
+                        new_buffer = self._staleness_reduce(arena.round_mask(ordered), alpha)
+            else:
+                with self._store_lock:
+                    records = self.store.select_latest(ordered)
+                if not records:
+                    raise RuntimeError("no local models available to aggregate")
+                new_buffer = self._staleness_stack(records, alpha)
+            self._commit(new_buffer)
+        return span.seconds
 
     def _secure_community_arena(
         self, alpha: float, members: list[str] | None = None

@@ -38,13 +38,15 @@ dispatches that were about to leave.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import TYPE_CHECKING, Any
+from typing import TYPE_CHECKING, Any, Iterator, NamedTuple
 
+from repro_torch.core import tracing
 from repro_torch.core.journal import EventJournal
 from repro_torch.core.learner import EvalReport, LocalUpdate
 from repro_torch.core.metrics import Telemetry
@@ -137,6 +139,11 @@ class UploadArrived:
     #: True for the engine-requeued second delivery of a fault-injected
     #: duplicated upload; duplicates do not consume an outstanding slot.
     duplicate: bool = False
+    #: The engine's id of the task that produced the update (its spans').
+    task: int | None = None
+    #: While a profiler collects: when the worker posted it (``tracing.mark``),
+    #: the start of its ``engine.arrival_queue`` span.
+    posted: int | None = None
 
     @property
     def learner_id(self) -> str | None:
@@ -211,6 +218,16 @@ class EngineStopped:
 
     completed: int
     error: str | None = None
+
+
+class _Submitted(NamedTuple):
+    """A task the engine submitted: its id and, while a profiler collects,
+    its submit time (``tracing.mark``, the start of its ``dispatch.queue``
+    span) and the tasks waiting ahead of it in the executor's queue."""
+
+    task: int
+    queued: int | None
+    depth: int | None
 
 
 @dataclasses.dataclass
@@ -311,6 +328,7 @@ class RoundEngine:
         # Loop-thread mirror of channel.upload_bytes, advanced as arrivals are
         # processed, so aggregate records carry a deterministic uplink total.
         self._up_bytes_seen = 0
+        self._tasks_submitted = 0  # the next task's id (loop thread only)
 
     # -- event plumbing -----------------------------------------------------
     def post(self, event: Any) -> None:
@@ -322,18 +340,36 @@ class RoundEngine:
         self.journal.record(event, **context)
 
     # -- dispatch -----------------------------------------------------------
+    def _new_task(self) -> _Submitted:
+        """Number the task about to be submitted (loop thread only)."""
+        task = self._tasks_submitted
+        self._tasks_submitted += 1
+        queued = tracing.mark()
+        depth = None if queued is None else self._executor._work_queue.qsize()
+        return _Submitted(task, queued, depth)
+
+    @contextlib.contextmanager
+    def _running(self, sub: _Submitted, lid: str, task_kind: str) -> Iterator[None]:
+        """A task's work on its worker: the spans closed inside carry its id
+        and learner, the first, ``dispatch.queue``, its wait for the worker."""
+        with tracing.bind(self.journal, task=sub.task, learner=lid):
+            tracing.close("dispatch.queue", sub.queued, task_kind=task_kind, depth=sub.depth)
+            yield
+
     def _submit(self, lid: str, task: TrainTask, envelope: Any) -> None:
         """Fire-and-forget one task: recv + fit on a worker, post the arrival."""
         c = self.controller
         # Captured now: a learner deregistered while its task is in flight
         # still finishes and its arrival takes the orphaned-upload path.
         learner = c._learners[lid]
+        sub = self._new_task()
 
         def work() -> None:
             try:
-                params = c.channel.recv(envelope)
-                update = learner.fit(params, task)
-                self.post(UploadArrived(update=update))
+                with self._running(sub, lid, "train"):
+                    params = c.channel.recv(envelope)
+                    update = learner.fit(params, task)
+                self.post(UploadArrived(update=update, task=sub.task, posted=tracing.mark()))
             except BaseException as exc:  # surfaced on the loop thread
                 self.post(UploadArrived(update=None, error=exc))
 
@@ -425,10 +461,13 @@ class RoundEngine:
         futures = []
         for lid in [x for x in state.cohort if x in c._learners]:
             envelope = broadcast.to({"eval": True})
+            sub = self._new_task()
 
-            def run(lid=lid, envelope=envelope) -> EvalReport:
-                params = c.channel.recv(envelope)
-                return c._learners[lid].evaluate(params, c.round_id)
+            def run(lid=lid, envelope=envelope, sub=sub) -> EvalReport:
+                with self._running(sub, lid, "eval"):
+                    params = c.channel.recv(envelope)
+                    with tracing.Span("learner.eval"):
+                        return c._learners[lid].evaluate(params, c.round_id)
 
             futures.append(self._executor.submit(run))
         state.timings.eval_dispatch_s = time.perf_counter() - t0
@@ -627,6 +666,14 @@ class RoundEngine:
                 drop(lid, fire)
 
         def handle_upload(event: UploadArrived, fire: bool = True) -> None:
+            # Spans closed while the loop handles the arrival (ingest, an
+            # aggregate it fires, the broadcast after) carry its task's id.
+            with tracing.bind(self.journal, task=event.task, learner=event.learner_id):
+                if not event.duplicate:
+                    tracing.close("engine.arrival_queue", event.posted)
+                handle_arrival(event, fire)
+
+        def handle_arrival(event: UploadArrived, fire: bool) -> None:
             if not event.duplicate:
                 self._outstanding -= 1
             if event.error is not None:
@@ -734,37 +781,40 @@ class RoundEngine:
             if fire:
                 check_round_progress(lid)
 
-        try:
-            state = self._start_round()
-            if continuous:
-                # A buffer carried from an earlier run() or restored from a
-                # checkpoint may already satisfy the policy.
-                pump_continuous()
-            # Terminates when the target is met AND nothing is in flight or
-            # queued.
-            while completed < target or self._outstanding > 0 or not self._events.empty():
-                event = self._events.get()
-                if isinstance(event, UploadArrived):
-                    handle_upload(event)
-                elif isinstance(event, DeadlineExpired):
-                    if (not continuous and not state.aggregated
-                            and event.round_id == state.round_id and state.arrived > 0):
-                        self._c_deadline.add(1)
+        # Spans the loop closes outside an arrival (the first broadcast, a
+        # deadline's aggregate) record to the journal with no task.
+        with tracing.bind(self.journal):
+            try:
+                state = self._start_round()
+                if continuous:
+                    # A buffer carried from an earlier run() or restored from a
+                    # checkpoint may already satisfy the policy.
+                    pump_continuous()
+                # Terminates when the target is met AND nothing is in flight or
+                # queued.
+                while completed < target or self._outstanding > 0 or not self._events.empty():
+                    event = self._events.get()
+                    if isinstance(event, UploadArrived):
+                        handle_upload(event)
+                    elif isinstance(event, DeadlineExpired):
+                        if (not continuous and not state.aggregated
+                                and event.round_id == state.round_id and state.arrived > 0):
+                            self._c_deadline.add(1)
+                            self._log(event)
+                            fire_round(trigger=None, partial=True)
+                        else:  # stale timer (round already aggregated): log only
+                            self._log(event)
+                    else:  # externally posted / unknown events: logged, not fatal
                         self._log(event)
-                        fire_round(trigger=None, partial=True)
-                    else:  # stale timer (round already aggregated): log only
-                        self._log(event)
-                else:  # externally posted / unknown events: logged, not fatal
-                    self._log(event)
-        except BaseException as exc:
+            except BaseException as exc:
+                if state is not None and state.deadline_timer is not None:
+                    state.deadline_timer.cancel()
+                self._abort()
+                self._log(EngineStopped(completed=completed, error=repr(exc)))
+                raise
             if state is not None and state.deadline_timer is not None:
                 state.deadline_timer.cancel()
-            self._abort()
-            self._log(EngineStopped(completed=completed, error=repr(exc)))
-            raise
-        if state is not None and state.deadline_timer is not None:
-            state.deadline_timer.cancel()
-        self._log(EngineStopped(completed=completed))
+            self._log(EngineStopped(completed=completed))
         return out
 
     def _note_offense(self, lid: str) -> None:

@@ -21,6 +21,9 @@ Design constraints (the engine loop is latency-critical):
   ``clock`` hook; with a fixed clock, two identical runs produce identical
   JSONL byte-for-byte (``tests/test_journal.py``).
 
+The port's spans (``core/tracing.py``) are journaled here too, through
+:meth:`record_span`, while a profiler collects.
+
 :meth:`replay` folds a record stream back into per-round
 :class:`RoundSummary` objects — cohort membership, arrival order, staleness
 histogram, policy decisions, wire bytes up/down — the per-round provenance
@@ -176,8 +179,24 @@ class EventJournal:
         payload = _serialize_event(event)
         if context:
             payload.update({k: jsonable(v) for k, v in context.items()})
+        return self._append(None, payload)
+
+    def record_span(self, name: str, t: float, t_end: float, **fields: Any) -> dict | None:
+        """Append one span's record (``core/tracing.py``): ``kind``
+        ``span.<name>``, ``t`` its start and ``t_end`` its end as the span
+        read them (not the time of the append), then ``fields``.  Returns the
+        record (None when recording is disabled)."""
+        if not self.enabled:
+            return None
+        payload = {"kind": f"span.{name}", "t_end": float(t_end),
+                   **{k: jsonable(v) for k, v in fields.items()}}
+        return self._append(float(t), payload)
+
+    def _append(self, t: float | None, payload: dict) -> dict:
+        """Number the record, stamp it (``t``, or the clock hook's now) and
+        keep it; wake or run the sink's flush."""
         with self._lock:
-            rec = {"seq": self._seq, "t": float(self.clock()), **payload}
+            rec = {"seq": self._seq, "t": float(self.clock()) if t is None else t, **payload}
             self._seq += 1
             if self.capacity:
                 self._ring.append(rec)

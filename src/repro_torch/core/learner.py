@@ -16,12 +16,11 @@ error-feedback residual of everything it did not send.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import packing, tracing
 from repro_torch.core.scheduler import TrainTask
 from repro_torch.device import resolve_device, wait_queued
 from repro_torch.kernels import topk as topk_kernels
@@ -205,41 +204,45 @@ class Learner:
             # the wire width, so the update is against exactly what the
             # controller broadcast.
             base = packing.pack_numeric(params, pad_to=self._upload_pad)
-        t0 = time.perf_counter()
-        for _ in range(task.local_steps):
-            batch = self._data_fn(task.batch_size)
-            params, opt_state, loss = step(params, opt_state, batch)
-        # The card returns before it finishes: wait for this learner's last
-        # step, so seconds_per_step (what task sizing consumes) measures the
-        # training work, not its launch.  Learner threads share the default
-        # stream, so the wait also covers work other learners queued before
-        # that step (as the reference's block_until_ready on one device),
-        # never work queued after it.
-        wait_queued(self.device)
-        elapsed = time.perf_counter() - t0
+        with tracing.Span("learner.steps", steps=task.local_steps) as steps:
+            for _ in range(task.local_steps):
+                batch = self._data_fn(task.batch_size)
+                params, opt_state, loss = step(params, opt_state, batch)
+            if steps.recording:
+                # The host's enqueue time: the rest of the span is the wait.
+                steps.fields["launch_s"] = steps.elapsed()
+            # The card returns before it finishes: wait for this learner's
+            # last step, so seconds_per_step (what task sizing consumes)
+            # measures the training work, not its launch.  Learner threads
+            # share the default stream, so the wait also covers work other
+            # learners queued before that step (as the reference's
+            # block_until_ready on one device), never work queued after it.
+            wait_queued(self.device)
         buffer = upload = None
         if self._manifest is not None:
-            # Flat-buffer upload fast path: pack learner-side, padded to the
-            # arena row width.
-            buffer = packing.pack_numeric(params, pad_to=self._upload_pad)
-            if self._channel is not None:
-                # Measured uplink: the row crosses the channel as a wire
-                # envelope; arrival reads exactly what the wire carried.
-                if base is not None:
-                    upload = self._upload_sparse(buffer, base, topk_codec, task)
-                else:
-                    upload = self._channel.upload(
-                        buffer,
-                        metadata={"learner_id": self.learner_id, "round_id": task.round_id},
-                    )
-                buffer = None
+            with tracing.Span("learner.upload") as span:
+                # Flat-buffer upload fast path: pack learner-side, padded to
+                # the arena row width.
+                buffer = packing.pack_numeric(params, pad_to=self._upload_pad)
+                if self._channel is not None:
+                    # Measured uplink: the row crosses the channel as a wire
+                    # envelope; arrival reads exactly what the wire carried.
+                    if base is not None:
+                        upload = self._upload_sparse(buffer, base, topk_codec, task)
+                    else:
+                        upload = self._channel.upload(
+                            buffer,
+                            metadata={"learner_id": self.learner_id, "round_id": task.round_id},
+                        )
+                    span.fields["bytes"] = int(upload.payload.nbytes)
+                    buffer = None
         return LocalUpdate(
             learner_id=self.learner_id,
             round_id=task.round_id,
             params=params,
             num_examples=self.num_examples,
             metrics={"train_loss": float(loss), "local_steps": task.local_steps},
-            seconds_per_step=elapsed / max(task.local_steps, 1),
+            seconds_per_step=steps.seconds / max(task.local_steps, 1),
             buffer=buffer,
             upload=upload,
         )

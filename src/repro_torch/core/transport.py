@@ -24,21 +24,23 @@ without sleeping.  It is full duplex:
 The wire stays host bytes (numpy) exactly as in the reference, so uplink and
 downlink byte counts equal the reference's for the same run: on the card,
 only the wire bytes cross to the host.  All stats mutation is lock-guarded:
-learners upload concurrently from executor threads.
+learners upload concurrently from executor threads.  Each timed half is a
+span (``core/tracing.py``), named for the side that runs it; its seconds are
+the ``channel.*_s`` counters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
-import time
-from typing import Any
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import packing, tracing
 from repro_torch.core.metrics import Telemetry
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -606,12 +608,14 @@ class Channel:
 
     # -- send halves --------------------------------------------------------
     def send(self, params: Any, metadata: dict | None = None) -> Envelope:
-        """Serialize a tree for one recipient (the per-send half)."""
-        t0 = time.perf_counter()
-        if self.codec is not None:
-            params = self.codec.encode(params)
-        buf, manifest = packing.pack_bytes(params)
-        self._account_serialize(time.perf_counter() - t0)
+        """Serialize a tree for one recipient (the per-send half), timed by
+        the span ``controller.send``."""
+        with tracing.Span("controller.send") as span:
+            if self.codec is not None:
+                params = self.codec.encode(params)
+            buf, manifest = packing.pack_bytes(params)
+            span.fields["bytes"] = int(buf.nbytes)
+        self._account_serialize(span.seconds)
         self._account_send(int(buf.nbytes))
         return Envelope(buffer=buf, manifest=manifest, metadata=dict(metadata or {}))
 
@@ -622,33 +626,37 @@ class Channel:
         *,
         buffer: torch.Tensor | None = None,
         manifest: packing.Manifest | None = None,
+        version: int | None = None,
     ) -> Broadcast:
         """Serialize **once** for a fan-out; recipients pay only wire time.
 
         With ``buffer=``/``manifest=`` (the controller's flat ``global_buffer``
         and its cached manifest) and no codec, the wire bytes come straight off
         the flat buffer; otherwise ``pack_bytes`` of ``params``, encoded by the
-        codec when there is one.
+        codec when there is one.  Timed by the span ``controller.broadcast``,
+        which records ``version`` (the model version sent) and the bytes.
         """
-        t0 = time.perf_counter()
-        if buffer is not None and manifest is not None and self.codec is None:
-            wire, m = packing.pack_bytes_from_numeric(buffer, manifest), manifest
-        else:
-            src = params if self.codec is None else self.codec.encode(params)
-            wire, m = packing.pack_bytes(src)
-        self._account_serialize(time.perf_counter() - t0)
+        with tracing.Span("controller.broadcast", version=version) as span:
+            if buffer is not None and manifest is not None and self.codec is None:
+                wire, m = packing.pack_bytes_from_numeric(buffer, manifest), manifest
+            else:
+                src = params if self.codec is None else self.codec.encode(params)
+                wire, m = packing.pack_bytes(src)
+            span.fields["bytes"] = int(wire.nbytes)
+        self._account_serialize(span.seconds)
         return Broadcast(self, wire, m, dict(metadata or {}))
 
     # -- receive ------------------------------------------------------------
     def recv(self, envelope: Envelope) -> Any:
         """Deserialize at the receiver half (one transfer onto ``device``),
-        decoding through the codec when there is one."""
-        t0 = time.perf_counter()
-        params = packing.unpack_bytes(envelope.buffer, envelope.manifest, self.device)
-        if self.codec is not None:
-            params = self.codec.decode(params)
+        decoding through the codec when there is one; timed by the span
+        ``learner.recv``."""
+        with tracing.Span("learner.recv", bytes=int(envelope.buffer.nbytes)) as span:
+            params = packing.unpack_bytes(envelope.buffer, envelope.manifest, self.device)
+            if self.codec is not None:
+                params = self.codec.decode(params)
         with self._stats_lock:
-            self._c["deserialize_s"].add(time.perf_counter() - t0)
+            self._c["deserialize_s"].add(span.seconds)
         return params
 
     # -- upload half (learner -> controller) --------------------------------
@@ -672,12 +680,13 @@ class Channel:
 
         Accounting is envelope-exact: ``upload_bytes`` counts the payload,
         ``upload_meta_bytes`` the serialized header; wire time covers both.
+        The encode is timed by the span ``learner.encode``.
         """
         c = self.upload_codec if codec is None else get_upload_codec(codec)
         n = int(buffer.shape[0])
-        t0 = time.perf_counter()
-        payload = c.encode(buffer)
-        dt = time.perf_counter() - t0
+        with tracing.Span("learner.encode") as span:
+            payload = c.encode(buffer)
+            span.fields["bytes"] = int(payload.nbytes)
         payload.flags.writeable = False  # wire bytes are immutable
         envelope = UploadEnvelope(
             codec=c.codec_id, payload=payload, num_elements=n,
@@ -687,7 +696,7 @@ class Channel:
         meta_nbytes = envelope.meta_nbytes
         with self._stats_lock:
             self._c["upload_serializations"].add(1)
-            self._c["upload_serialize_s"].add(dt)
+            self._c["upload_serialize_s"].add(span.seconds)
             self._c["upload_messages"].add(1)
             self._c["upload_bytes"].add(nbytes)
             self._c["upload_meta_bytes"].add(meta_nbytes)
@@ -703,22 +712,29 @@ class Channel:
 
         With ``with_norm=True`` returns ``(row, norm)``, the norm an unread
         device scalar enqueued behind the decode (the admission screen's
-        single readback).
+        single readback).  Timed by the span ``controller.decode``, as the
+        quantized and sparse landings below are.
         """
         c = self._resolve_upload_codec(envelope)
-        t0 = time.perf_counter()
-        if with_norm:
-            fused = getattr(c, "decode_with_norm", None)
-            if fused is not None:
-                row, norm = fused(envelope.payload, envelope.num_elements, self.device)
+        with self._timed_decode(envelope):
+            if with_norm:
+                fused = getattr(c, "decode_with_norm", None)
+                if fused is not None:
+                    row, norm = fused(envelope.payload, envelope.num_elements, self.device)
+                else:
+                    row = c.decode(envelope.payload, envelope.num_elements, self.device)
+                    norm = torch.linalg.vector_norm(row.to(torch.float32))
             else:
                 row = c.decode(envelope.payload, envelope.num_elements, self.device)
-                norm = torch.linalg.vector_norm(row.to(torch.float32))
-        else:
-            row = c.decode(envelope.payload, envelope.num_elements, self.device)
-        with self._stats_lock:
-            self._c["upload_deserialize_s"].add(time.perf_counter() - t0)
         return (row, norm) if with_norm else row
+
+    @contextlib.contextmanager
+    def _timed_decode(self, envelope: UploadEnvelope) -> Iterator[None]:
+        """An uplink decode: its span's seconds are ``upload_deserialize_s``."""
+        with tracing.Span("controller.decode", bytes=int(envelope.payload.nbytes)) as span:
+            yield
+        with self._stats_lock:
+            self._c["upload_deserialize_s"].add(span.seconds)
 
     def recv_upload_quantized(
         self, envelope: UploadEnvelope, out_params: int
@@ -738,11 +754,9 @@ class Channel:
                 f"codec {envelope.codec!r} cannot land quantized rows; "
                 "use recv_upload for f32 decode"
             )
-        t0 = time.perf_counter()
-        q, scales, norm = decode_q(envelope.payload, envelope.num_elements, out_params,
-                                   self.device)
-        with self._stats_lock:
-            self._c["upload_deserialize_s"].add(time.perf_counter() - t0)
+        with self._timed_decode(envelope):
+            q, scales, norm = decode_q(envelope.payload, envelope.num_elements, out_params,
+                                       self.device)
         return q, scales, norm
 
     def recv_upload_sparse(
@@ -764,8 +778,6 @@ class Channel:
                 f"codec {envelope.codec!r} cannot land sparse rows; "
                 "use recv_upload for dense decode"
             )
-        t0 = time.perf_counter()
-        idx, val, norm = decode_s(envelope.payload, envelope.num_elements, self.device)
-        with self._stats_lock:
-            self._c["upload_deserialize_s"].add(time.perf_counter() - t0)
+        with self._timed_decode(envelope):
+            idx, val, norm = decode_s(envelope.payload, envelope.num_elements, self.device)
         return idx, val, norm
