@@ -13,7 +13,9 @@ Leaf order and names follow the reference exactly (``repro_torch/tree.py``):
 sorted dict keys, ``keystr`` names.  The JAX ``treedef`` has no counterpart;
 the port's manifest carries its own :class:`~repro_torch.tree.Structure`.
 The wire stays host bytes (numpy), exactly as in the reference, so byte
-counts and buffers agree between the two packages.
+counts and buffers agree between the two packages.  Off the card, those
+bytes land in page-locked host memory (:func:`pinned_bytes`), so each
+crossing between the card and a wire is one DMA.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ __all__ = [
     "tree_from_numpy",
     "tree_to_numpy",
     "host_tensor",
+    "pinned_bytes",
+    "wire_is_pinned",
 ]
 
 
@@ -189,12 +193,59 @@ def _host_bytes(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().reshape(-1).view(torch.uint8).numpy()
 
 
+def _pinned_empty(nbytes: int) -> torch.Tensor:
+    """``nbytes`` of page-locked host memory from PyTorch's caching host
+    allocator.  Its blocks are reused across model versions and uploads; a
+    block goes back to the cache only once no tensor or numpy view of it is
+    left."""
+    return torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+
+
+def _pinned(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A card tensor's elements, flat, in a fresh page-locked host tensor of
+    ``dtype`` (``t``'s own by default).
+
+    In ``t``'s dtype this is one DMA, waited on: wire bytes are complete
+    before the wire exists.  In another dtype the DMA brings ``t``'s own
+    dtype over and the cast runs on the host, as a blocking ``.to("cpu",
+    dtype)`` casts (the card could round NaN payloads otherwise).
+    """
+    dtype = t.dtype if dtype is None else dtype
+    out = _pinned_empty(t.numel() * dtype.itemsize).view(dtype)
+    src = t.reshape(-1)
+    if src.is_cuda and dtype != src.dtype:
+        src = _pinned(src)
+    out.copy_(src)
+    return out
+
+
+def pinned_bytes(t: torch.Tensor, dtype: torch.dtype | None = None) -> np.ndarray:
+    """A card tensor's bytes as a wire, the ``uint8`` numpy view of a
+    page-locked host buffer filled by one DMA (cast to ``dtype`` on the host
+    when given and different); never an alias of ``t``.  The view holds the
+    buffer, so the buffer is not handed out again while the wire lives."""
+    return _host_bytes(_pinned(t, dtype))
+
+
+def wire_is_pinned(wire: np.ndarray) -> bool:
+    """Whether a wire's bytes sit in page-locked host memory: whether the
+    tensor its numpy views were taken from is pinned.  Memory numpy owns is
+    pageable."""
+    base = wire
+    while isinstance(base, np.ndarray):
+        base = base.base
+    return isinstance(base, torch.Tensor) and base.is_pinned()
+
+
 def host_tensor(wire: np.ndarray, device: torch.device) -> torch.Tensor:
     """Wire bytes as a fresh ``uint8`` tensor on ``device`` (always a copy).
 
     Wire buffers are read-only numpy arrays; the copy (an H2D transfer on the
     card, a clone on the host) keeps the receiver's tensors independent of
-    the shared envelope.
+    the shared envelope.  The wire's memory is taken as it is: a wire made
+    off the card (:func:`pinned_bytes`) is page-locked, and its H2D transfer
+    is one DMA with no host staging.  The transfer is waited on, so a shared
+    broadcast wire is never read after this returns.
     """
     with warnings.catch_warnings():
         # from_numpy warns on read-only arrays; the tensor is copied at once.
@@ -224,18 +275,25 @@ def pack_bytes_from_numeric(buffer: torch.Tensor, manifest: Manifest) -> np.ndar
 
     One device-to-host transfer of the logical prefix, then one cast when the
     model is dtype-homogeneous, or one cast per spec otherwise.  A padded tail
-    is sliced off.  Bit-identical to
-    ``pack_bytes(unpack_numeric(buffer, manifest))[0]``, and always a fresh
-    copy, never an alias of ``buffer``.
+    is sliced off.  On the card the wire is page-locked memory: a model of
+    the buffer's own dtype is one DMA straight into it; any other keeps the
+    host-side casts, from a page-locked copy into a page-locked wire.
+    Bit-identical to ``pack_bytes(unpack_numeric(buffer, manifest))[0]``,
+    and always a fresh copy, never an alias of ``buffer``.
     """
     if not manifest.specs:
         return np.empty((0,), np.uint8)
-    host = buffer.detach()[: manifest.total_elements].cpu()
+    prefix = buffer.detach()[: manifest.total_elements]
     dtypes = {s.dtype for s in manifest.specs}
     if len(dtypes) == 1:
         dt = torch_dtype(next(iter(dtypes)))
-        return _host_bytes(host.to(dt, copy=True))
-    out = np.empty((manifest.total_bytes,), np.uint8)
+        if prefix.is_cuda:
+            return pinned_bytes(prefix, dt)
+        return _host_bytes(prefix.cpu().to(dt, copy=True))
+    if prefix.is_cuda:
+        host, out = _pinned(prefix), _pinned_empty(manifest.total_bytes).numpy()
+    else:
+        host, out = prefix.cpu(), np.empty((manifest.total_bytes,), np.uint8)
     cursor = 0
     for spec in manifest.specs:
         seg = host[spec.offset : spec.offset + spec.size].to(torch_dtype(spec.dtype))
@@ -248,9 +306,13 @@ def pack_row_bytes(buffer: torch.Tensor, dtype: torch.dtype = torch.float32) -> 
     """Wire bytes of one flat ``(P,)`` numeric buffer (the upload row format).
 
     One device-to-host transfer plus one cast/copy, then a byte view; never an
-    alias of the caller's buffer.  ``P * itemsize`` bytes.
+    alias of the caller's buffer.  ``P * itemsize`` bytes.  On the card, one
+    DMA into a page-locked wire (:func:`pinned_bytes`).
     """
-    return _host_bytes(buffer.detach().reshape(-1).to("cpu", dtype, copy=True))
+    flat = buffer.detach().reshape(-1)
+    if flat.is_cuda:
+        return pinned_bytes(flat, dtype)
+    return _host_bytes(flat.to("cpu", dtype, copy=True))
 
 
 def bitcast(seg: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -23,10 +23,11 @@ without sleeping.  It is full duplex:
 
 The wire stays host bytes (numpy) exactly as in the reference, so uplink and
 downlink byte counts equal the reference's for the same run: on the card,
-only the wire bytes cross to the host.  All stats mutation is lock-guarded:
-learners upload concurrently from executor threads.  Each timed half is a
-span (``core/tracing.py``), named for the side that runs it; its seconds are
-the ``channel.*_s`` counters.
+only the wire bytes cross to the host, by one DMA into page-locked host
+memory (``packing.pinned_bytes``), and back by one DMA out of it.  All
+stats mutation is lock-guarded: learners upload concurrently from executor
+threads.  Each timed half is a span (``core/tracing.py``), named for the
+side that runs it; its seconds are the ``channel.*_s`` counters.
 """
 
 from __future__ import annotations
@@ -61,6 +62,13 @@ _STAT_FIELDS = (
     "upload_meta_bytes", "upload_serializations", "upload_serialize_s",
     "upload_deserialize_s", "upload_virtual_wire_s",
 )
+
+#: A CUDA channel's counters of the wires that crossed between the card and
+#: the host through page-locked memory and through pageable memory: one
+#: count a serialization (broadcast, send, an upload's encode) and a decode
+#: (a learner's receive, the controller's decode of an upload).  A host
+#: channel registers neither.
+_COPY_FIELDS = ("pinned_copies", "pageable_copies")
 
 
 class ChannelStats:
@@ -102,7 +110,7 @@ def _stats_view_property(field: str) -> property:
     return property(_get)
 
 
-for _field in _STAT_FIELDS:
+for _field in _STAT_FIELDS + _COPY_FIELDS:
     setattr(ChannelStats, _field, _stats_view_property(_field))
 del _field
 
@@ -148,6 +156,12 @@ class RawUploadCodec:
         """
         row = self.decode(payload, num_elements, device)
         return row, torch.linalg.vector_norm(row)
+
+
+def _wire_bytes(wire: torch.Tensor) -> np.ndarray:
+    """An encoder's ``uint8`` wire tensor as host bytes: off the card one DMA
+    into page-locked memory, on the host the tensor's own memory."""
+    return packing.pinned_bytes(wire) if wire.is_cuda else wire.cpu().numpy()
 
 
 def _split_quant_wire(
@@ -239,7 +253,7 @@ class Int8UploadCodec:
         n = int(flat.shape[0])
         q, scales = ops.quantize(flat, group=self.group, block_rows=self._block_rows(n))
         n_scales = quant.wire_layout(n, self.group, self.block_rows)[1]
-        return quant.wire_prefix(q, scales, n_scales).cpu().numpy()
+        return _wire_bytes(quant.wire_prefix(q, scales, n_scales))
 
     def _checked_layout(self, payload: np.ndarray, num_elements: int) -> tuple[int, int]:
         """Validate payload size against the wire layout; return (n_q, n_scales)."""
@@ -376,8 +390,7 @@ class TopkUploadCodec:
             parts = [idx, val]
         else:
             parts = [idx, *topk_kernels.quantize_values(val, self.group)]
-        wire = torch.cat([p.contiguous().view(torch.uint8) for p in parts])
-        return wire.cpu().numpy()
+        return _wire_bytes(torch.cat([p.contiguous().view(torch.uint8) for p in parts]))
 
     def _checked_layout(self, payload: np.ndarray, num_elements: int) -> tuple[int, int]:
         """Validate payload size against the layout; return ``(k_eff, n_scales)``."""
@@ -574,6 +587,8 @@ class Channel:
         self.upload_codec = get_upload_codec(upload_codec)
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self._c = {f: self.telemetry.counter(f"channel.{f}") for f in _STAT_FIELDS}
+        if self.device.type == "cuda":
+            self._c.update({f: self.telemetry.counter(f"channel.{f}") for f in _COPY_FIELDS})
         self.stats = ChannelStats(self.telemetry)
         self._stats_lock = threading.Lock()
 
@@ -601,6 +616,16 @@ class Channel:
             self._c["bytes_moved"].add(nbytes)
             self._c["virtual_wire_s"].add(self._wire_time(nbytes, learner_id))
 
+    def _account_copy(self, span: tracing.Span, wire: np.ndarray) -> None:
+        """On a CUDA channel, count one wire crossing between the card and the
+        host as pinned or pageable, and note which on its span."""
+        if self.device.type != "cuda":
+            return
+        pinned = packing.wire_is_pinned(wire)
+        with self._stats_lock:
+            self._c["pinned_copies" if pinned else "pageable_copies"].add(1)
+        span.fields["pinned"] = pinned
+
     def _account_serialize(self, dt: float) -> None:
         with self._stats_lock:
             self._c["serializations"].add(1)
@@ -615,6 +640,7 @@ class Channel:
                 params = self.codec.encode(params)
             buf, manifest = packing.pack_bytes(params)
             span.fields["bytes"] = int(buf.nbytes)
+            self._account_copy(span, buf)
         self._account_serialize(span.seconds)
         self._account_send(int(buf.nbytes))
         return Envelope(buffer=buf, manifest=manifest, metadata=dict(metadata or {}))
@@ -643,6 +669,7 @@ class Channel:
                 src = params if self.codec is None else self.codec.encode(params)
                 wire, m = packing.pack_bytes(src)
             span.fields["bytes"] = int(wire.nbytes)
+            self._account_copy(span, wire)
         self._account_serialize(span.seconds)
         return Broadcast(self, wire, m, dict(metadata or {}))
 
@@ -655,6 +682,7 @@ class Channel:
             params = packing.unpack_bytes(envelope.buffer, envelope.manifest, self.device)
             if self.codec is not None:
                 params = self.codec.decode(params)
+            self._account_copy(span, envelope.buffer)
         with self._stats_lock:
             self._c["deserialize_s"].add(span.seconds)
         return params
@@ -687,6 +715,7 @@ class Channel:
         with tracing.Span("learner.encode") as span:
             payload = c.encode(buffer)
             span.fields["bytes"] = int(payload.nbytes)
+            self._account_copy(span, payload)
         payload.flags.writeable = False  # wire bytes are immutable
         envelope = UploadEnvelope(
             codec=c.codec_id, payload=payload, num_elements=n,
@@ -733,6 +762,7 @@ class Channel:
         """An uplink decode: its span's seconds are ``upload_deserialize_s``."""
         with tracing.Span("controller.decode", bytes=int(envelope.payload.nbytes)) as span:
             yield
+            self._account_copy(span, envelope.payload)
         with self._stats_lock:
             self._c["upload_deserialize_s"].add(span.seconds)
 
